@@ -1,0 +1,9 @@
+"""PyTorch + CUDA port of the N2Net system (reference: the ``repro`` package).
+
+Layout mirrors ``repro``: ``core/`` (bit primitives, BNN oracle, compiler,
+interpreter), ``dataplane/`` (lowering, traffic, executor), ``kernels/``
+(hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version), ``obs/`` (metrics and spans) and ``configs/``.  The package imports
+``torch`` and ``numpy`` only — never ``jax`` and never ``repro``.  Entry
+points default to ``device="cuda"`` and raise without a GPU.
+"""
