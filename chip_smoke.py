@@ -18,15 +18,34 @@ What it does, in order:
    and read just after each run.  The two outputs must agree on every
    packet, and on the first chunk with the port's interpreter and the BNN
    oracle;
-5. prints one JSON line of per-kernel numbers, then the status line.
+5. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
+   fixed seed):
+   a. holds ``bnn_matmul_packed`` (bit for bit, at the decode and prefill
+      shapes of the model's three projection shapes and at ragged K),
+      ``bnn_matmul_mxu`` (bit for bit) and ``flash_attention`` (within 3e-2
+      in bf16, 2e-3 in float32) against their plain versions, each timed
+      beside its plain version and the one PyTorch call that computes the
+      same function, where there is one;
+   b. drives the public binary-GEMM op ``ops.binary_matmul`` through both
+      kernel implementations at a prefill-sized activation;
+   c. serves 8 requests through the ``Engine`` (all 32 layers, bf16, packed
+      XNOR-popcount projections) and checks that every packed projection
+      went through ``bitpack`` and ``bnn_matmul_packed``;
+   d. scores one 2048-token sequence with ``forward`` under
+      ``attn_impl="pallas_flash"`` (one ``flash_attention`` launch per
+      layer), and holds a 2-layer float32 copy's flash logits against its
+      plain-attention logits;
+6. prints one JSON line of per-kernel numbers, then the status line.
 
-Any failure raises, so the script exits non-zero; it also exits non-zero
-without a CUDA device, before doing anything.
+Every path is driven with all launch counts zeroed just before it and read
+just after.  Any failure raises, so the script exits non-zero; it also exits
+non-zero without a CUDA device, before doing anything.
 
 Run from the repository root:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,6 +63,11 @@ from repro_torch.core import bnn, compiler, interpreter  # noqa: E402
 from repro_torch.core.pipeline import RMT, RMT_NATIVE_POPCNT  # noqa: E402
 from repro_torch.dataplane import executor, lowering, traffic  # noqa: E402
 from repro_torch.kernels import _build, bitpack, optable_exec, packed_layer  # noqa: E402
+from repro_torch import models  # noqa: E402
+from repro_torch.configs.base import QuantConfig, get_config  # noqa: E402
+from repro_torch.kernels import bnn_matmul, bnn_matmul_mxu, flash_attention, ref  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
 PACKETS = 1 << 20
 CHUNK = 1 << 15
@@ -56,6 +80,17 @@ SCENARIO = "ddos_burst"
 # x 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# Population count runs at 16 results per SM per clock on compute capability
+# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput table):
+# the packed GEMM's limiting operation.  Dense bf16 on the tensor cores:
+# 989 TFLOP/s (H100 SXM data sheet).
+POPC_PER_S = 16 * 132 * 1.98e9
+BF16_TENSOR_FLOPS = 989e12
+
+LM_ARCH = "phi3-mini-3.8b"
+LM_REQUESTS = 8
+LM_NEW_TOKENS = 32
+LM_SCORE_LEN = 2048
 
 
 def card_line() -> str:
@@ -81,10 +116,10 @@ def time_ms(fn, *args, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time the card could take: bytes over HBM rate vs integer
-    operations over the INT32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, rate: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    """Least time the card could take: bytes over HBM rate vs operations over
+    their peak ``rate`` (default the INT32 rate), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -238,6 +273,217 @@ def drive_main_path(dev, lp, records: dict) -> dict:
         )
     return results
 
+# ---------------------------------------------------------------------------
+# The LM slice
+# ---------------------------------------------------------------------------
+
+COUNTED = {
+    "optable_run": optable_exec.optable_run,
+    "pack_bits_words": bitpack.pack_bits_words,
+    "bitpack": bitpack.bitpack,
+    "packed_layer": packed_layer.packed_layer,
+    "bnn_matmul_packed": bnn_matmul.bnn_matmul_packed,
+    "bnn_matmul_mxu": bnn_matmul_mxu.bnn_matmul_mxu,
+    "flash_attention": flash_attention.flash_attention,
+}
+
+
+def zero_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items() if fn.launches}
+
+
+def close(what: str, out: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """Fail unless ``out`` is within ``tol`` of ``want`` everywhere; returns
+    the max absolute difference."""
+    torch.cuda.synchronize()
+    if out.shape != want.shape or out.dtype != want.dtype:
+        raise AssertionError(f"{what}: kernel gives {out.dtype} {tuple(out.shape)}, "
+                             f"plain {want.dtype} {tuple(want.shape)}")
+    diff = float((out.float() - want.float()).abs().max().item())
+    if not diff <= tol:
+        raise AssertionError(f"{what}: max abs diff {diff} > {tol}")
+    print(f"  {what}: max abs diff {diff} (tolerance {tol})")
+    return diff
+
+
+def lm_projections(cfg) -> list[tuple[int, int, int]]:
+    """(K, N, launches per layer) of one dense layer's packed projections."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return [(d, q, 1), (d, kv, 2), (q, d, 1), (d, cfg.d_ff, 2), (cfg.d_ff, d, 1)]
+
+
+def check_bnn_matmul_packed(dev, cfg, gen) -> dict:
+    """The packed GEMM bit for bit against its plain version at the decode
+    (M = 4 slots) and prefill (M = 128) shapes of every projection, and at
+    ragged K through ``binary_matmul``.  Timed per decode-step layer: the 7
+    projection launches at M = 4."""
+    err = 0
+    ms = plain = nbytes = popcs = 0.0
+    prefill_ms = 0.0
+    for k, n, per_layer in lm_projections(cfg):
+        wp, _ = kops.pack_weights(torch.randn((n, k), generator=gen, device=dev))
+        for m in (4, 128):
+            xp = kops._pack_rows(torch.randn((m, k), generator=gen, device=dev))
+            err = max(err, same(f"bnn_matmul_packed M={m} K={k} N={n}",
+                                bnn_matmul.bnn_matmul_packed(xp, wp, k_bits=k),
+                                ref.bnn_matmul_packed_ref(xp, wp, k)))
+            t = time_ms(lambda: bnn_matmul.bnn_matmul_packed(xp, wp, k_bits=k))
+            if m == 4:
+                ms += per_layer * t
+                plain += per_layer * time_ms(ref.bnn_matmul_packed_ref, xp, wp, k, iters=3)
+                kw = wp.shape[1]
+                nbytes += per_layer * (m * kw + n * kw + m * n) * 4
+                popcs += per_layer * m * n * kw
+            else:
+                prefill_ms += per_layer * t
+    print(f"  bnn_matmul_packed per layer: decode (M=4) {ms} ms, prefill (M=128) {prefill_ms} ms")
+    for k in (100, 513):
+        x = torch.randn((37, k), generator=gen, device=dev)
+        w = torch.randn((300, k), generator=gen, device=dev)
+        err = max(err, same(f"binary_matmul pallas_packed K={k}",
+                            kops.binary_matmul(x, w, implementation="pallas_packed"),
+                            kops.binary_matmul(x, w, implementation="ref")))
+    b_ms, b_by = bound_ms(nbytes, popcs, POPC_PER_S)
+    return dict(source="src/repro_torch/csrc/bnn_matmul.cu",
+                replaces="src/repro/kernels/bnn_matmul.py:56",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_bnn_matmul_mxu(dev, cfg, gen) -> dict:
+    """The tensor-core GEMM bit for bit against its plain version at a
+    prefill-sized activation times phi3's up projection (2048 x 3072 x 8192)
+    and at a ragged shape; timed at the first."""
+    m, k, n = LM_SCORE_LEN, cfg.d_model, cfg.d_ff
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = ref.sign(torch.randn((k, n), generator=gen, device=dev), torch.bfloat16)
+    err = same(f"bnn_matmul_mxu {m}x{k}x{n} bf16", bnn_matmul_mxu.bnn_matmul_mxu(x, w),
+               bnn_matmul_mxu.bnn_matmul_mxu_plain(x, w))
+    xr = torch.randn((1000, 513), generator=gen, device=dev)
+    wr = ref.sign(torch.randn((513, 300), generator=gen, device=dev), torch.bfloat16)
+    err = max(err, same("bnn_matmul_mxu 1000x513x300 f32", bnn_matmul_mxu.bnn_matmul_mxu(xr, wr),
+                        bnn_matmul_mxu.bnn_matmul_mxu_plain(xr, wr)))
+    xs = ref.sign(x, torch.bfloat16)
+    b_ms, b_by = bound_ms((m * k + k * n) * 2 + m * n * 4, 2 * m * n * k, BF16_TENSOR_FLOPS)
+    return dict(source="src/repro_torch/csrc/bnn_matmul_mxu.cu",
+                replaces="src/repro/kernels/bnn_matmul_mxu.py:45",
+                max_abs_err=err,
+                ms=time_ms(bnn_matmul_mxu.bnn_matmul_mxu, x, w),
+                plain_ms=time_ms(bnn_matmul_mxu.bnn_matmul_mxu_plain, x, w, iters=5),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch.matmul, xs, w))
+
+
+def check_flash(dev, cfg, gen) -> dict:
+    """Flash attention against its plain version: the scoring path's shape
+    (BH = 32 heads, S = 2048, D = 96, bf16, causal) within 3e-2, and small
+    float32 causal and full cases within 2e-3; timed at the first."""
+    bh, s, d = cfg.num_heads, LM_SCORE_LEN, cfg.resolved_head_dim
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    err = close(f"flash_attention ({bh}, {s}, {d}) bf16 causal", flash_attention.flash_attention(q, k, v),
+                flash_attention.flash_attention_plain(q, k, v), 3e-2)
+    for causal in (True, False):
+        qf, kf, vf = (torch.randn((4, 300, d), generator=gen, device=dev) for _ in range(3))
+        err = max(err, close(f"flash_attention (4, 300, {d}) f32 causal={causal}",
+                             flash_attention.flash_attention(qf, kf, vf, causal=causal),
+                             flash_attention.flash_attention_plain(qf, kf, vf, causal=causal), 2e-3))
+    q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b_ms, b_by = bound_ms(4 * bh * s * d * 2, 2 * bh * s * s * d, BF16_TENSOR_FLOPS)  # causal half of 4*S^2*D
+    return dict(source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:72",
+                max_abs_err=err,
+                ms=time_ms(flash_attention.flash_attention, q, k, v),
+                plain_ms=time_ms(flash_attention.flash_attention_plain, q, k, v, iters=5),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: sdpa(q4, k4, v4, is_causal=True)))
+
+
+def drive_binary_matmul(dev, cfg, gen) -> dict:
+    """The public op through both kernel implementations at a prefill-sized
+    activation and phi3's up projection; both must equal the ±1 oracle."""
+    x = torch.randn((LM_SCORE_LEN, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((cfg.d_ff, cfg.d_model), generator=gen, device=dev)
+    want = kops.binary_matmul(x, w, implementation="ref")
+    zero_counts()
+    packed = kops.binary_matmul(x, w, implementation="pallas_packed")
+    mxu = kops.binary_matmul(x, w, implementation="pallas_mxu")
+    launches = read_counts()
+    same("binary_matmul pallas_packed == ref", packed, want)
+    same("binary_matmul pallas_mxu == ref", mxu, want)
+    for name in ("bnn_matmul_packed", "bnn_matmul_mxu", "bitpack"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"binary_matmul never launched {name}: {launches}")
+    print(f"binary-GEMM op path: launches {launches}")
+    return launches
+
+
+def drive_serving(dev, cfg, params) -> dict:
+    """The slice's main path: the Engine serves LM_REQUESTS requests."""
+    rng = np.random.default_rng(SEED)
+    eng = Engine(cfg, params, max_batch=4, max_len=256, device=dev)
+    for i in range(LM_REQUESTS):
+        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129))).astype(np.int32)
+        eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=LM_NEW_TOKENS))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if sorted(r.rid for r in done) != list(range(LM_REQUESTS)):
+        raise AssertionError(f"served {sorted(r.rid for r in done)} of {LM_REQUESTS} requests")
+    for r in done:
+        if len(r.output) != LM_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.rid}: {len(r.output)} tokens, {r.output[:8]}...")
+    calls = LM_REQUESTS + eng.decode_steps  # prefills + batched decode steps
+    per_call = 7 * cfg.num_layers
+    for name in ("bnn_matmul_packed", "bitpack"):
+        if launches.get(name, 0) != per_call * calls:
+            raise AssertionError(f"{name} launched {launches.get(name, 0)} times, expected "
+                                 f"{per_call} per call x {calls} calls: {launches}")
+    print(f"serving path ({LM_ARCH}, {cfg.num_layers} layers, bf16, bnn_packed): "
+          f"{LM_REQUESTS} requests, wall {wall} s; prefill {eng.prefill_seconds} s for "
+          f"{LM_REQUESTS} prompts; decode {eng.decode_seconds} s for {eng.decode_steps} steps "
+          f"({eng.decode_seconds / eng.decode_steps * 1e3} ms/step), {eng.decode_tokens} tokens "
+          f"-> {eng.decode_tokens / eng.decode_seconds} decode tokens/s; launches {launches}")
+    print(f"  sample: request 0 -> {done[0].output[:8]}...")
+    return launches
+
+
+def drive_scoring(dev, cfg, params, gen) -> dict:
+    """``forward`` with the flash kernel over one LM_SCORE_LEN-token sequence,
+    then a 2-layer float32 unquantized copy: flash logits vs plain attention."""
+    flash_cfg = dataclasses.replace(cfg, attn_impl="pallas_flash")
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_SCORE_LEN), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, _ = models.forward(params, {"tokens": tokens}, flash_cfg)
+    finite = bool(torch.isfinite(logits).all())
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if launches.get("flash_attention") != cfg.num_layers:
+        raise AssertionError(f"flash_attention launched {launches.get('flash_attention')} times, "
+                             f"expected one per layer ({cfg.num_layers})")
+    if logits.shape != (1, LM_SCORE_LEN, cfg.vocab_size) or not finite:
+        raise AssertionError(f"scoring logits {tuple(logits.shape)}, finite={finite}")
+    print(f"scoring path (forward, pallas_flash, 1 x {LM_SCORE_LEN} tokens): {seconds} s, "
+          f"launches {launches}")
+
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32", quant=QuantConfig())
+    p2 = models.init_params(small, SEED + 1, device=dev)
+    want, _ = models.forward(p2, {"tokens": tokens}, small)
+    got, _ = models.forward(p2, {"tokens": tokens}, dataclasses.replace(small, attn_impl="pallas_flash"))
+    close("2-layer float32 forward: flash logits vs plain attention", got, want, 2e-3)
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -288,11 +534,31 @@ def main() -> int:
         raise AssertionError("first chunk disagrees with run_program or the BNN oracle")
     print(f"both backends agree on all {PACKETS} packets; first chunk == run_program == bnn.forward")
 
+    t_lm = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products stay float32 (the default)
+    cfg = get_config(LM_ARCH, quant=QuantConfig(mode="bnn_packed", targets=("ffn", "attn_proj")),
+                     attn_impl="xla")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    print(f"LM slice: {LM_ARCH} at published widths, {cfg.num_layers} layers, {cfg.dtype}, "
+          f"quant {cfg.quant.mode} on {cfg.quant.targets}")
+    print("kernel vs plain PyTorch, on the card:")
+    records["bnn_matmul_packed"] = check_bnn_matmul_packed(dev, cfg, gen)
+    records["bnn_matmul_mxu"] = check_bnn_matmul_mxu(dev, cfg, gen)
+    records["flash_attention"] = check_flash(dev, cfg, gen)
+    records["bnn_matmul_mxu"]["launches"] = drive_binary_matmul(dev, cfg, gen)["bnn_matmul_mxu"]
+    t0 = time.perf_counter()
+    lm_params = models.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"init_params: {time.perf_counter() - t0} s")
+    records["bnn_matmul_packed"]["launches"] = drive_serving(dev, cfg, lm_params)["bnn_matmul_packed"]
+    records["flash_attention"]["launches"] = drive_scoring(dev, cfg, lm_params, gen)["flash_attention"]
+    print(f"LM phases: {time.perf_counter() - t_lm} s")
+
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-             library_ms=None)
+             library_ms=r.get("library_ms"))
         for name, r in records.items()
     ]
     print(json.dumps({"kernels": kernels}))

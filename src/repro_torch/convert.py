@@ -1,9 +1,10 @@
-"""Carry a BNN's weights from the reference package into the port.
+"""Carry weights from the reference package into the port: a BNN's layers
+(:func:`params_from_jax`) and an LM's parameter tree (:func:`lm_params_from_jax`).
 
 The reference keeps parameters as JAX arrays; this module takes them as
 numpy arrays (``[np.asarray(w) for w in params]``), so the port never
 imports JAX.  The port then compiles and lowers its own program from the
-converted weights.
+converted BNN weights, or runs its LM over the converted tree.
 """
 from __future__ import annotations
 
@@ -58,3 +59,56 @@ def params_from_jax(
             raise ValueError(f"layer {li}: thresholds must lie in [0, {n_in + 1}]")
         out.append(torch.from_numpy(vec.astype(np.int32)))
     return weights, out
+
+
+def lm_params_from_jax(tree: dict, cfg, *, device="cuda") -> dict:
+    """Carry an LM's parameters from the reference package into the port.
+
+    ``tree``: the reference's ``init_params`` pytree with every leaf as a
+    numpy array (``jax.tree.map(np.asarray, params)``), layers stacked on a
+    leading L axis.  bf16 leaves may come as float32 (exact) or as numpy's
+    bfloat16 extension type.  Returns the port's parameters: the same keys,
+    ``"layers"`` as one dict per layer, on ``device``:
+
+    * packed sign words (uint32) -> int32 bit views, bit for bit;
+    * ``alpha`` stays float32 (the reference keeps it so);
+    * every other float leaf -> ``cfg.param_dtype()``.
+    """
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    dtype = cfg.param_dtype()
+
+    def leaf(name: str, a) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            return torch.from_numpy(a.view(np.int32).copy()).to(dev)
+        if a.dtype.kind in "iu":
+            return torch.from_numpy(a.astype(np.int32)).to(dev)
+        t = torch.from_numpy(a.astype(np.float32))
+        return t.to(dev, torch.float32 if name == "alpha" else dtype)
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return leaf(name, node)
+
+    out = {k: walk(v, k) for k, v in tree.items() if k != "layers"}
+    stacked = walk(tree["layers"], "layers")
+    n_layers = len(next(iter(_leaves(stacked))))
+    out["layers"] = [_index(stacked, i) for i in range(n_layers)]
+    return out
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+def _index(node, i: int):
+    if isinstance(node, dict):
+        return {k: _index(v, i) for k, v in node.items()}
+    return node[i].clone()

@@ -1,0 +1,76 @@
+"""Bit-packed XNOR-popcount GEMM: CUDA kernel + plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/bnn_matmul.py::
+bnn_matmul_packed`` (source: ``csrc/bnn_matmul.cu``).  Operands are sign bits
+packed 32 to a uint32 word, carried as int32 bit views and zero-padded past
+``k_bits`` in both operands::
+
+    out[m, n] = 2 * sum_w popcount(~(x[m, w] ^ w[n, w])) - 2 * Kw * 32 + k_bits
+
+(M, N) int32, exact.  Unlike the TPU kernel, any M, N and Kw are taken: the
+kernel masks ragged edges itself.  A CPU tensor runs the plain version
+(``ref.bnn_matmul_packed_ref``); a CUDA tensor launches the kernel, counted
+in ``bnn_matmul_packed.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import bnn_matmul_packed_ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {"bnn_matmul_packed": ([_P, _P, _P, _I, _I, _I, _I, _P], _I)}
+
+# Row blocks of the launch grid (grid.y): at most 65535 tiles of 64 rows.
+_MAX_ROWS = 65535 * 64
+
+
+def bnn_matmul_packed(
+    x_packed: torch.Tensor, w_packed: torch.Tensor, *, k_bits: int
+) -> torch.Tensor:
+    """``sign(x) @ sign(w).T`` on packed operands.
+
+    x_packed: (M, Kw) int32 views; w_packed: (N, Kw) int32 views;
+    ``0 <= k_bits <= Kw * 32``.  Returns (M, N) int32.
+    """
+    if x_packed.ndim != 2 or w_packed.ndim != 2:
+        raise ValueError("x_packed must be (M, Kw), w_packed (N, Kw)")
+    (m, kw), (n, kw2) = x_packed.shape, w_packed.shape
+    if kw != kw2:
+        raise ValueError(f"K mismatch: {kw} vs {kw2}")
+    if x_packed.dtype != torch.int32 or w_packed.dtype != torch.int32:
+        raise ValueError(
+            f"packed operands are int32 bit views, got {x_packed.dtype}, {w_packed.dtype}"
+        )
+    if not 0 <= k_bits <= kw * 32:
+        raise ValueError(f"k_bits={k_bits} outside [0, {kw * 32}]")
+    if x_packed.device != w_packed.device:
+        raise ValueError(f"x on {x_packed.device}, w on {w_packed.device}")
+    if x_packed.device.type == "cpu":
+        return bnn_matmul_packed_ref(x_packed, w_packed, k_bits)
+    if x_packed.device.type != "cuda":
+        raise ValueError(f"bnn_matmul_packed runs on CPU or CUDA tensors, got {x_packed.device}")
+    if m > _MAX_ROWS or kw >= 1 << 25:
+        raise ValueError(f"M={m} or Kw={kw} is beyond the kernel's grid")
+    x_packed, w_packed = x_packed.contiguous(), w_packed.contiguous()
+    out = torch.empty((m, n), dtype=torch.int32, device=x_packed.device)
+    if m == 0 or n == 0:
+        return out
+    if kw == 0:
+        return out.fill_(k_bits)
+    lib = _build.library("bnn_matmul", _SIGNATURES)
+    with torch.cuda.device(x_packed.device):
+        code = lib.bnn_matmul_packed(
+            x_packed.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, n, kw, k_bits,
+            _build.stream_of(x_packed),
+        )
+    _build.check(lib, code, "bnn_matmul_packed")
+    bnn_matmul_packed.launches += 1
+    return out
+
+
+bnn_matmul_packed.launches = 0

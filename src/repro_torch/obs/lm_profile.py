@@ -1,0 +1,96 @@
+"""Where an LM decode step's time goes, on one GPU: a ``torch.profiler`` trace.
+
+Builds phi3-mini-3.8b at its published widths (weights from a seed, bf16,
+``bnn_packed`` projections), fills the 4 slots of an ``Engine`` with
+128-token prompts, takes 3 warm-up decode steps, then traces ``--steps``
+decode steps and prints, per step:
+
+* the host wall time (each step ends with its tokens on the host);
+* the device's busy time (the union of kernel intervals) and idle share;
+* kernel launches, and device time by kernel name;
+* the host operators with the most self time.
+
+Run from the repository root on a machine with a CUDA device::
+
+    PYTHONPATH=src python -m repro_torch.obs.lm_profile [--steps 5] [--trace out.json]
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import models
+from repro_torch.configs.base import QuantConfig, get_config
+from repro_torch.serving.engine import Engine, Request
+
+# chip_smoke.py's serving configuration: every slot full, prompts as long as
+# its longest.
+ARCH = "phi3-mini-3.8b"
+SLOTS = 4
+PROMPT = 128
+SEED = 0
+
+
+def _busy_us(events) -> float:
+    """Length of the union of the device intervals, in microseconds."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5, help="decode steps to trace")
+    ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("lm_profile needs a CUDA device")
+
+    cfg = get_config(ARCH, quant=QuantConfig(mode="bnn_packed", targets=("ffn", "attn_proj")))
+    params = models.init_params(cfg, SEED, device="cuda")
+    eng = Engine(cfg, params, max_batch=SLOTS, max_len=PROMPT + 3 + args.steps + 8)
+    rng = np.random.default_rng(SEED)
+    for i in range(SLOTS):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32),
+                           max_new_tokens=10_000))
+    eng._admit()
+    for _ in range(3):
+        eng._step()
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            eng._step()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = _busy_us(kernels) / 1e3 / args.steps
+    print(f"{cfg.name}, {cfg.num_layers} layers, {SLOTS} slots, index {eng.cache.index}: "
+          f"decode step {wall_ms} ms on the host clock; device busy {busy_ms} ms per step "
+          f"(idle share {1 - busy_ms / wall_ms}); {len(kernels) / args.steps} kernels per step")
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+    print("device time per step by kernel (ms, launches):")
+    for name, times in rows[:15]:
+        print(f"  {sum(times) / 1e3 / args.steps:.6f}  {len(times) / args.steps:g}  {name[:110]}")
+    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -201,9 +201,15 @@ def test_configs_match_reference():
     assert tcfg.TABLE1_WIDTHS == jcfg.TABLE1_WIDTHS
 
 
-@pytest.mark.parametrize("scenario", sorted(jtraffic.SCENARIOS))
+# The reference's built-in scenarios, read at import (collection) time: tests
+# of other files (tests/test_pcap.py) register more in the reference's global
+# table at run time, and may share this worker process.
+REF_SCENARIOS = sorted(jtraffic.SCENARIOS)
+
+
+@pytest.mark.parametrize("scenario", REF_SCENARIOS)
 def test_traffic_matches_reference(scenario):
-    assert sorted(ttraffic.SCENARIOS) == sorted(jtraffic.SCENARIOS)
+    assert sorted(ttraffic.SCENARIOS) == REF_SCENARIOS
     np.testing.assert_array_equal(
         ttraffic.generate(scenario, 1500, 32, seed=3),
         jtraffic.generate(scenario, 1500, 32, seed=3),
@@ -260,7 +266,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import sys, repro_torch, repro_torch.convert, repro_torch.device, "
         "repro_torch.configs.n2net_paper, repro_torch.core.interpreter, "
         "repro_torch.core.compiler, repro_torch.dataplane.executor, "
-        "repro_torch.dataplane.traffic, repro_torch.kernels._build\n"
+        "repro_torch.dataplane.traffic, repro_torch.kernels._build, "
+        "repro_torch.kernels.ops, repro_torch.kernels.flash_attention, "
+        "repro_torch.configs.archs, repro_torch.layers.attention, repro_torch.layers.ffn, "
+        "repro_torch.models.model, repro_torch.serving.engine, repro_torch.obs.lm_profile\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -98,3 +98,127 @@ def test_execute_on_cuda_matches_cpu(cuda, backend, scan_hops):
     cpu = executor.execute(lp, packets, backend=backend, scan_hops=scan_hops, device="cpu")
     gpu = executor.execute(lp, packets, backend=backend, scan_hops=scan_hops, chunk_size=2048)
     np.testing.assert_array_equal(gpu, cpu)
+
+
+# ---------------------------------------------------------------------------
+# The LM slice: packed and tensor-core binary GEMMs, flash attention, and the
+# model they run in.  The GEMMs are exact; flash is held to 2e-3 in float32
+# and 3e-2 in bf16 (the tolerances of the reference's flash tests).
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs.base import QuantConfig, get_config  # noqa: E402
+from repro_torch.kernels import bnn_matmul, bnn_matmul_mxu, flash_attention, ops, ref  # noqa: E402
+
+
+def _words(rng, *shape):
+    return torch.from_numpy(rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 64, 32), (4, 3072, 3072), (5, 70, 100), (17, 200, 513), (130, 129, 8192)])
+def test_bnn_matmul_packed_kernel_matches_plain(cuda, m, n, k):
+    rng = np.random.default_rng(m + n + k)
+    kw = -(-k // 32)
+    x, w = _words(rng, m, kw), _words(rng, n, kw)
+    if k % 32:  # the pad bits are zero in both operands
+        keep = (1 << (k % 32)) - 1
+        x[:, -1] &= keep
+        w[:, -1] &= keep
+    x[0], w[0] = -1, 0  # all-ones and all-zero words
+    before = bnn_matmul.bnn_matmul_packed.launches
+    out = bnn_matmul.bnn_matmul_packed(x.to(cuda), w.to(cuda), k_bits=k)
+    torch.cuda.synchronize()
+    assert bnn_matmul.bnn_matmul_packed.launches == before + 1
+    assert torch.equal(out.cpu(), ref.bnn_matmul_packed_ref(x, w, k))
+
+
+# bf16 with K and N multiples of 8 takes the pipelined kernel, the rest the
+# staged one.
+@pytest.mark.parametrize("m,n,k", [(64, 64, 32), (100, 70, 513), (3, 130, 64), (130, 264, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bnn_matmul_mxu_kernel_matches_plain(cuda, m, n, k, dtype):
+    gen = torch.Generator().manual_seed(m * n + k)
+    x = torch.randn((m, k), generator=gen).to(dtype)
+    x[0, :4] = torch.tensor([0.0, -0.0, float("nan"), -1.0]).to(dtype)
+    w = ref.sign(torch.randn((k, n), generator=gen), torch.bfloat16)
+    got = bnn_matmul_mxu.bnn_matmul_mxu(x.to(cuda), w.to(cuda))
+    assert torch.equal(got.cpu(), bnn_matmul_mxu.bnn_matmul_mxu_plain(x, w))
+    xi = torch.randint(-8, 8, (m, k), generator=gen).to(dtype)  # exact without binarizing
+    got = bnn_matmul_mxu.bnn_matmul_mxu(xi.to(cuda), w.to(cuda), binarize_x=False)
+    assert torch.equal(got.cpu(), bnn_matmul_mxu.bnn_matmul_mxu_plain(xi, w, binarize_x=False))
+
+
+@pytest.mark.parametrize("k", [100, 513])
+def test_binary_matmul_implementations_agree_on_cuda(cuda, k):
+    gen = torch.Generator().manual_seed(k)
+    x, w = torch.randn((3, 37, k), generator=gen), torch.randn((45, k), generator=gen)
+    want = ops.binary_matmul(x, w, implementation="ref")
+    for impl in ("ref", "packed_ref", "pallas_packed", "pallas_mxu", "auto"):
+        assert torch.equal(ops.binary_matmul(x.to(cuda), w.to(cuda), implementation=impl).cpu(), want)
+
+
+@pytest.mark.parametrize("s,d", [(1, 16), (64, 96), (100, 128), (257, 96)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain_f32(cuda, s, d, causal):
+    gen = torch.Generator().manual_seed(s * d)
+    q, k, v = (torch.randn((3, s, d), generator=gen).to(cuda) for _ in range(3))
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("s,d", [(1, 16), (300, 96), (129, 128), (70, 40)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain_bf16(cuda, s, d, causal):
+    gen = torch.Generator().manual_seed(s + d)
+    q, k, v = (torch.randn((4, s, d), generator=gen).to(cuda, torch.bfloat16) for _ in range(3))
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+def _tiny_lm(**kw):
+    return get_config(
+        "phi3-mini-3.8b", num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+        head_dim=16, d_ff=128, vocab_size=97, attn_q_chunk=16, init_std=0.5,
+        dtype="float32", **kw,
+    )
+
+
+def test_lm_forward_on_cuda_matches_cpu(cuda):
+    from repro_torch import models
+
+    for quant, impl in ((QuantConfig(mode="bnn_packed"), "xla"), (QuantConfig(), "pallas_flash")):
+        cfg = _tiny_lm(quant=quant, attn_impl=impl)
+        params = models.init_params(cfg, 0, device="cpu")
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 97, (2, 33)))
+        want, _ = models.forward(params, {"tokens": tokens}, cfg)
+        moved = _to(params, cuda)
+        got, _ = models.forward(moved, {"tokens": tokens.to(cuda)}, cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_engine_on_cuda_serves_the_cpu_tokens(cuda):
+    from repro_torch import models
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = _tiny_lm(quant=QuantConfig(mode="bnn_packed"))
+    params = models.init_params(cfg, 1, device="cpu")
+    outs = []
+    for dev, p in (("cpu", params), (cuda, _to(params, cuda))):
+        eng = Engine(cfg, p, max_batch=2, max_len=64, device=dev)
+        for i in range(3):
+            eng.submit(Request(rid=i, prompt=(np.arange(4 + 5 * i) * 7 + i) % 90, max_new_tokens=3 + 2 * i))
+        outs.append([(r.rid, r.output) for r in eng.run()])
+    assert outs[0] == outs[1]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
