@@ -22,10 +22,13 @@ What it does, in order:
    fixed seed):
    a. holds ``bnn_matmul_packed`` (bit for bit, at the decode and prefill
       shapes of the model's three projection shapes and at ragged K),
-      ``bnn_matmul_mxu`` (bit for bit) and ``flash_attention`` (within 3e-2
-      in bf16, 2e-3 in float32) against their plain versions, each timed
-      beside its plain version and the one PyTorch call that computes the
-      same function, where there is one;
+      ``bnn_matmul_mxu`` (bit for bit, on its tma route at the model's shape
+      and a ragged one, and on its staged route) and ``flash_attention``
+      (within 3e-2 in bf16 on its tma and wmma routes, 2e-3 in float32)
+      against their plain versions, each case asserting the route its
+      launch took; each kernel is timed beside its plain version and, in
+      turns (kernel, library, library, kernel), beside the one PyTorch call
+      that computes the same function, where there is one;
    b. drives the public binary-GEMM op ``ops.binary_matmul`` through both
       kernel implementations at a prefill-sized activation;
    c. serves 8 requests through the ``Engine`` (all 32 layers, bf16, packed
@@ -33,8 +36,8 @@ What it does, in order:
       went through ``bitpack`` and ``bnn_matmul_packed``;
    d. scores one 2048-token sequence with ``forward`` under
       ``attn_impl="pallas_flash"`` (one ``flash_attention`` launch per
-      layer), and holds a 2-layer float32 copy's flash logits against its
-      plain-attention logits;
+      layer, every one on the tma route), and holds a 2-layer float32
+      copy's flash logits against its plain-attention logits;
 6. prints one JSON line of per-kernel numbers, then the status line.
 
 Every path is driven with all launch counts zeroed just before it and read
@@ -116,6 +119,18 @@ def time_ms(fn, *args, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_in_turns(kernel, library, iters: int = 20) -> tuple[float, float]:
+    """Mean ms of ``kernel`` and of ``library`` (each a no-argument call),
+    timed in turns on one card (kernel, library, library, kernel) so that a
+    drift of clock or power lands on both alike."""
+    k1 = time_ms(kernel, iters=iters)
+    l1 = time_ms(library, iters=iters)
+    l2 = time_ms(library, iters=iters)
+    k2 = time_ms(kernel, iters=iters)
+    print(f"    in turns: kernel {k1}, {k2} ms; library {l1}, {l2} ms")
+    return (k1 + k2) / 2, (l1 + l2) / 2
+
+
 def bound_ms(nbytes: float, ops: float, rate: float = INT32_OPS_PER_S) -> tuple[float, str]:
     """Least time the card could take: bytes over HBM rate vs operations over
     their peak ``rate`` (default the INT32 rate), whichever is larger."""
@@ -143,7 +158,7 @@ def build_kernels() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {len(logs)} sources (nvcc in parallel)")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "bytes smem" in line:
+            if any(key in line for key in ("Compiling entry", "registers", "spill", "warning")):
                 print(f"  {name}: {line.strip()}")
 
 
@@ -291,10 +306,23 @@ COUNTED = {
 def zero_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
+        for path in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[path] = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTED.items() if fn.launches}
+
+
+def routed(fn, path: str, call):
+    """``call()``, failing unless it launched ``fn`` exactly once, on
+    ``path``; returns what ``call`` returned."""
+    before = dict(fn.launches_by_route)
+    out = call()
+    moved = {p: fn.launches_by_route[p] - before[p] for p in before}
+    if moved != {p: int(p == path) for p in before}:
+        raise AssertionError(f"{fn.__name__}: expected one launch on route {path}, got {moved}")
+    return out
 
 
 def close(what: str, out: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -358,51 +386,70 @@ def check_bnn_matmul_packed(dev, cfg, gen) -> dict:
 
 def check_bnn_matmul_mxu(dev, cfg, gen) -> dict:
     """The tensor-core GEMM bit for bit against its plain version at a
-    prefill-sized activation times phi3's up projection (2048 x 3072 x 8192)
-    and at a ragged shape; timed at the first."""
+    prefill-sized activation times phi3's up projection (2048 x 3072 x 8192,
+    the tma route), at a ragged shape on each route, and at -0.0 and NaN
+    signs; timed at the first, in turns with ``torch.matmul`` of the signed
+    bf16 operands."""
+    mxu, plain = bnn_matmul_mxu.bnn_matmul_mxu, bnn_matmul_mxu.bnn_matmul_mxu_plain
     m, k, n = LM_SCORE_LEN, cfg.d_model, cfg.d_ff
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     w = ref.sign(torch.randn((k, n), generator=gen, device=dev), torch.bfloat16)
-    err = same(f"bnn_matmul_mxu {m}x{k}x{n} bf16", bnn_matmul_mxu.bnn_matmul_mxu(x, w),
-               bnn_matmul_mxu.bnn_matmul_mxu_plain(x, w))
+    err = same(f"bnn_matmul_mxu {m}x{k}x{n} bf16 (tma)", routed(mxu, "tma", lambda: mxu(x, w)), plain(x, w))
+    xt = torch.randn((1000, 520), generator=gen, device=dev).to(torch.bfloat16)
+    xt[0, :3] = torch.tensor([-0.0, float("nan"), 0.0])
+    wt = ref.sign(torch.randn((520, 264), generator=gen, device=dev), torch.bfloat16)
+    err = max(err, same("bnn_matmul_mxu 1000x520x264 bf16 (tma, ragged M, N, K)",
+                        routed(mxu, "tma", lambda: mxu(xt, wt)), plain(xt, wt)))
     xr = torch.randn((1000, 513), generator=gen, device=dev)
     wr = ref.sign(torch.randn((513, 300), generator=gen, device=dev), torch.bfloat16)
-    err = max(err, same("bnn_matmul_mxu 1000x513x300 f32", bnn_matmul_mxu.bnn_matmul_mxu(xr, wr),
-                        bnn_matmul_mxu.bnn_matmul_mxu_plain(xr, wr)))
+    err = max(err, same("bnn_matmul_mxu 1000x513x300 f32 (staged)",
+                        routed(mxu, "staged", lambda: mxu(xr, wr)), plain(xr, wr)))
     xs = ref.sign(x, torch.bfloat16)
     b_ms, b_by = bound_ms((m * k + k * n) * 2 + m * n * 4, 2 * m * n * k, BF16_TENSOR_FLOPS)
+    ms, lib_ms = time_in_turns(lambda: mxu(x, w), lambda: torch.matmul(xs, w))
     return dict(source="src/repro_torch/csrc/bnn_matmul_mxu.cu",
                 replaces="src/repro/kernels/bnn_matmul_mxu.py:45",
-                max_abs_err=err,
-                ms=time_ms(bnn_matmul_mxu.bnn_matmul_mxu, x, w),
-                plain_ms=time_ms(bnn_matmul_mxu.bnn_matmul_mxu_plain, x, w, iters=5),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(torch.matmul, xs, w))
+                max_abs_err=err, ms=ms,
+                plain_ms=time_ms(plain, x, w, iters=5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 def check_flash(dev, cfg, gen) -> dict:
     """Flash attention against its plain version: the scoring path's shape
-    (BH = 32 heads, S = 2048, D = 96, bf16, causal) within 3e-2, and small
-    float32 causal and full cases within 2e-3; timed at the first."""
+    (BH = 32 heads, S = 2048, D = 96, bf16, causal; the tma route) and
+    smaller bf16 cases (full attention, ragged S, and D = 20 on the wmma
+    route) within 3e-2, float32 causal and full cases within 2e-3; each
+    asserts its route.  Timed at the first, in turns with
+    ``scaled_dot_product_attention``."""
+    fa, plain = flash_attention.flash_attention, flash_attention.flash_attention_plain
     bh, s, d = cfg.num_heads, LM_SCORE_LEN, cfg.resolved_head_dim
-    q, k, v = (torch.randn((bh, s, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
-    err = close(f"flash_attention ({bh}, {s}, {d}) bf16 causal", flash_attention.flash_attention(q, k, v),
-                flash_attention.flash_attention_plain(q, k, v), 3e-2)
+
+    def qkv(shape, dtype):
+        return (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+
+    q, k, v = qkv((bh, s, d), torch.bfloat16)
+    err = close(f"flash_attention ({bh}, {s}, {d}) bf16 causal (tma)",
+                routed(fa, "tma", lambda: fa(q, k, v)), plain(q, k, v), 3e-2)
+    for shape, causal, path in (((8, 1024, d), False, "tma"), ((4, 300, d), True, "tma"),
+                                ((4, 300, 20), True, "wmma")):
+        qb, kb, vb = qkv(shape, torch.bfloat16)
+        err = max(err, close(f"flash_attention {shape} bf16 causal={causal} ({path})",
+                             routed(fa, path, lambda: fa(qb, kb, vb, causal=causal)),
+                             plain(qb, kb, vb, causal=causal), 3e-2))
     for causal in (True, False):
-        qf, kf, vf = (torch.randn((4, 300, d), generator=gen, device=dev) for _ in range(3))
-        err = max(err, close(f"flash_attention (4, 300, {d}) f32 causal={causal}",
-                             flash_attention.flash_attention(qf, kf, vf, causal=causal),
-                             flash_attention.flash_attention_plain(qf, kf, vf, causal=causal), 2e-3))
+        qf, kf, vf = qkv((4, 300, d), torch.float32)
+        err = max(err, close(f"flash_attention (4, 300, {d}) f32 causal={causal} (f32)",
+                             routed(fa, "f32", lambda: fa(qf, kf, vf, causal=causal)),
+                             plain(qf, kf, vf, causal=causal), 2e-3))
     q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b_ms, b_by = bound_ms(4 * bh * s * d * 2, 2 * bh * s * s * d, BF16_TENSOR_FLOPS)  # causal half of 4*S^2*D
+    ms, lib_ms = time_in_turns(lambda: fa(q, k, v), lambda: sdpa(q4, k4, v4, is_causal=True))
     return dict(source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:72",
-                max_abs_err=err,
-                ms=time_ms(flash_attention.flash_attention, q, k, v),
-                plain_ms=time_ms(flash_attention.flash_attention_plain, q, k, v, iters=5),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(lambda: sdpa(q4, k4, v4, is_causal=True)))
+                max_abs_err=err, ms=ms,
+                plain_ms=time_ms(plain, q, k, v, iters=5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 def drive_binary_matmul(dev, cfg, gen) -> dict:
@@ -420,7 +467,10 @@ def drive_binary_matmul(dev, cfg, gen) -> dict:
     for name in ("bnn_matmul_packed", "bnn_matmul_mxu", "bitpack"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"binary_matmul never launched {name}: {launches}")
-    print(f"binary-GEMM op path: launches {launches}")
+    by_route = dict(bnn_matmul_mxu.bnn_matmul_mxu.launches_by_route)
+    if by_route["tma"] != launches["bnn_matmul_mxu"]:
+        raise AssertionError(f"binary_matmul's bnn_matmul_mxu launches by route: {by_route}")
+    print(f"binary-GEMM op path: launches {launches}; bnn_matmul_mxu by route {by_route}")
     return launches
 
 
@@ -469,13 +519,15 @@ def drive_scoring(dev, cfg, params, gen) -> dict:
     finite = bool(torch.isfinite(logits).all())
     seconds = time.perf_counter() - t0
     launches = read_counts()
-    if launches.get("flash_attention") != cfg.num_layers:
-        raise AssertionError(f"flash_attention launched {launches.get('flash_attention')} times, "
-                             f"expected one per layer ({cfg.num_layers})")
+    by_route = dict(flash_attention.flash_attention.launches_by_route)
+    if launches.get("flash_attention") != cfg.num_layers or by_route["tma"] != cfg.num_layers:
+        raise AssertionError(f"flash_attention launched {launches.get('flash_attention')} times "
+                             f"(by route {by_route}), expected one per layer ({cfg.num_layers}), "
+                             f"all on the tma route")
     if logits.shape != (1, LM_SCORE_LEN, cfg.vocab_size) or not finite:
         raise AssertionError(f"scoring logits {tuple(logits.shape)}, finite={finite}")
     print(f"scoring path (forward, pallas_flash, 1 x {LM_SCORE_LEN} tokens): {seconds} s, "
-          f"launches {launches}")
+          f"launches {launches}; flash_attention by route {by_route}")
 
     small = dataclasses.replace(cfg, num_layers=2, dtype="float32", quant=QuantConfig())
     p2 = models.init_params(small, SEED + 1, device=dev)

@@ -16,30 +16,37 @@
 // dense bf16; bytes only when M is small.
 //
 // Design: the TPU kernel carried an f32 accumulator across a sequential K
-// grid axis.  Here a block owns an output tile and loops over K in slices of
-// 32 itself, with WMMA (bf16 16x16x16, f32 accumulation).  Two kernels, the
-// launch choosing by what it can see:
+// grid axis.  Here a block owns an output tile and loops over K itself.  Two
+// kernels; the wrapper (kernels/bnn_matmul_mxu.py::route) picks one by what
+// it can see, with one entry point each:
 //
-// * pipelined (bf16 x, K and N multiples of 8, 16-byte aligned operands: the
-//   model's path): 128 x 128 tiles, eight warps of 64 x 32.  A three-stage
-//   ring of slices in shared memory is filled with cp.async, 16 bytes a
-//   copy, so the next slices load while the tensor cores work.  x is staged
-//   as it is and its sign taken on the loaded fragment (an elementwise map,
-//   so which element sits where does not matter).  A copy past an edge
-//   fills zeros: a zero x past K is signed into +1, but the w rows past K
-//   are zero too, so it adds 0.  Full 16 x 16 results are stored straight
-//   to device memory, ragged ones through a per-warp scratch tile.
-// * staged (any other shape or type): 64 x 64 tiles, four warps of 32 x 32;
+// * tma (bf16 x, K and N multiples of 8, 16-byte aligned operands: the
+//   model's path): persistent, one block per SM walking 128 x 256 output
+//   tiles (M fastest, so the blocks in flight share a few column tiles of
+//   w), K in slices of 64 through a four-stage ring in shared memory fed by
+//   TMA with the 128B swizzle (x as one 128 x 64 box, w as four 64 x 64
+//   boxes, which wgmma reads MN-major).  One producer thread keeps the ring
+//   full across tiles; two consumer warpgroups each run wgmma m64n256k16
+//   into float32 registers for 64 rows of the tile.  The sign stays fused:
+//   each consumer loads its x fragments from the landed slice with
+//   ldmatrix, signs them in registers (one bf16x2 compare and one FMA a
+//   word) and feeds them to wgmma as its register A operand, so x is never
+//   written back signed, not even to shared memory.  TMA fills zeros past
+//   every edge: a zero x past K is signed into +1, but the w rows past K are
+//   zero too, so it adds 0.  Stores go straight from registers, masked at
+//   ragged M and N, and drain while the block's next tile multiplies.
+//   (hopper.cuh holds the TMA, mbarrier and wgmma pieces.)
+// * staged (float32 x, or K or N not a multiple of 8, or misaligned
+//   operands): WMMA bf16 16x16x16, 64 x 64 tiles, four warps of 32 x 32;
 //   x is signed (or rounded to bf16) while it is copied into shared memory,
 //   anything past an edge is stored as 0 in both operands, and the tile is
 //   written through shared memory to mask the ragged edges.
-//
-// wgmma and TMA are later work.
 
 #include <cuda_bf16.h>
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -134,134 +141,176 @@ int launch(const void* x, const void* w, void* out, int m, int n, int k, int bin
 }
 
 
-// ---- pipelined kernel: bf16 x, K % 8 == 0, N % 8 == 0 ----------------------
+// ---- TMA + wgmma kernel: bf16 x, K % 8 == 0, N % 8 == 0 -----------------------
 
-constexpr int kPThreads = 256;            // 8 warps, 2 x 4 over the tile
-constexpr int kPBM = 128, kPBN = 128, kPBK = 32, kStages = 3;
-constexpr int kPWM = 64, kPWN = 32;       // one warp's part of the tile
-constexpr int kPLdA = kPBK + 8, kPLdB = kPBN + 8;
-constexpr int kStageElems = kPBM * kPLdA + kPBK * kPLdB;
-constexpr size_t kPSharedBytes =
-    static_cast<size_t>(kStages) * kStageElems * sizeof(__nv_bfloat16) + 8 * 256 * sizeof(float);
+constexpr int kTBM = 128, kTBN = 256, kTBK = 64, kTStages = 4;
+constexpr int kTThreads = 384;                     // two consumer warpgroups + a producer
+constexpr int kConsumerWarps = 8;
+constexpr int kABytes = kTBM * kTBK * 2;           // one 128 x 64 box of x
+constexpr int kBBoxBytes = kTBK * 64 * 2;          // one 64 (k) x 64 (n) box of w
+constexpr int kStageBytes = kABytes + kTBN / 64 * kBBoxBytes;
+constexpr size_t kTSharedBytes = static_cast<size_t>(kTStages) * kStageBytes +
+                                 2 * kTStages * sizeof(uint64_t) + 1024;  // + alignment slack
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in_range) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = in_range ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+// +1 where a bf16 x >= 0, -1 elsewhere, for both halves of a word: one
+// bf16x2 compare (1.0 where x >= 0, so -0.0 gives +1; 0.0 where x < 0 or x
+// is NaN) and one bf16x2 FMA, 2 * ge - 1, exact.
+__device__ __forceinline__ uint32_t sign_bf16x2(uint32_t w) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w);
+  const __nv_bfloat162 ge = __hge2(x, __float2bfloat162_rn(0.f));
+  const __nv_bfloat162 r = __hfma2(ge, __float2bfloat162_rn(2.f), __float2bfloat162_rn(-1.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-__global__ void __launch_bounds__(kPThreads)
-bnn_matmul_mxu_pipelined_kernel(const __nv_bfloat16* __restrict__ x,
-                                const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
-                                int m, int n, int k, bool binarize) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* scratch = reinterpret_cast<float*>(ring + kStages * kStageElems) + (threadIdx.x >> 5) * 256;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * kPWM, wn = (warp & 3) * kPWN;
-  const int m0 = blockIdx.y * kPBM, n0 = blockIdx.x * kPBN;
-  const int slices = (k + kPBK - 1) / kPBK;
-
-  // Slice s into stage s % kStages: A is 128 rows x 4 chunks of 8, B is 32
-  // rows x 16 chunks; two chunks of each per thread.
-  auto load = [&](int s) {
-    __nv_bfloat16* as = ring + (s % kStages) * kStageElems;
-    __nv_bfloat16* bs = as + kPBM * kPLdA;
-    const int k0 = s * kPBK;
+// The A fragments of one x slice for this thread, signed when `binarize`:
+// a[kk] holds its part of the warpgroup's 64 rows x k 16kk .. 16kk + 15, as
+// wgmma's register A operand takes it (warp w: rows 16w .. 16w + 15).
+// `rows` is the warpgroup's 64 rows of the slice as TMA stored them
+// (128-byte rows, 128B swizzle: the 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8)).
+__device__ __forceinline__ void x_fragments(uint32_t (&a)[kTBK / 16][4], const unsigned char* rows,
+                                            int warp, int lane, bool binarize) {
+  const int q = lane >> 3, r = 16 * warp + 8 * (q & 1) + (lane & 7);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = tid + kPThreads * j;
-      const int r = c >> 2, col = (c & 3) * 8;
-      const bool in = m0 + r < m && k0 + col < k;
-      cp_async16(as + r * kPLdA + col, in ? x + static_cast<long long>(m0 + r) * k + k0 + col : x, in);
+  for (int kk = 0; kk < kTBK / 16; ++kk) {
+    const int chunk = 2 * kk + (q >> 1);
+    hopper::ldmatrix_x4(a[kk], rows + r * 128 + ((chunk ^ (r & 7)) << 4));
+    if (binarize) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[kk][e] = sign_bf16x2(a[kk][e]);
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = tid + kPThreads * j;
-      const int r = c >> 4, col = (c & 15) * 8;
-      const bool in = k0 + r < k && n0 + col < n;
-      cp_async16(bs + r * kPLdB + col, in ? w + static_cast<long long>(k0 + r) * n + n0 + col : w, in);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kPWM / 16][kPWN / 16];
-#pragma unroll
-  for (int i = 0; i < kPWM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < kPWN / 16; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < slices) load(s);
-    cp_async_commit();
   }
-  const __nv_bfloat16 plus = __float2bfloat16_rn(1.f), minus = __float2bfloat16_rn(-1.f);
-  for (int s = 0; s < slices; ++s) {
-    cp_async_wait<kStages - 2>();  // slice s has landed
-    __syncthreads();               // and every warp is done with slice s - 1
-    if (s + kStages - 1 < slices) load(s + kStages - 1);
-    cp_async_commit();
-    const __nv_bfloat16* as = ring + (s % kStages) * kStageElems;
-    const __nv_bfloat16* bs = as + kPBM * kPLdA;
+}
+
+__global__ void __launch_bounds__(kTThreads, 1)
+bnn_matmul_mxu_tma_kernel(const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap w_map, float* __restrict__ out,
+                          int m, int n, int k, bool binarize) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_shared(smem_raw, 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kTStages * kStageBytes);
+  uint64_t* empty = full + kTStages;
+  const int slices = (k + kTBK - 1) / kTBK;
+  // Persistent: the block walks the output tiles blockIdx.x, + gridDim.x, ...
+  // M fastest, so the blocks in flight share a few column tiles of w.
+  const int m_tiles = (m + kTBM - 1) / kTBM;
+  const int tiles = m_tiles * ((n + kTBN - 1) / kTBN);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // The warpgroup index, broadcast from lane 0 so that the compiler sees it
+  // is uniform across each warp and setmaxnreg applies to each branch: the
+  // consumers' 128 accumulators and fragments need more than 168 registers.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_map(&x_map);
+      tma_prefetch_map(&w_map);
+      int it = 0;  // slices loaded so far, over all of this block's tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile % m_tiles * kTBM, n0 = tile / m_tiles * kTBN;
+        for (int t = 0; t < slices; ++t, ++it) {
+          const int s = it % kTStages;
+          mbar_wait(empty + s, ((it / kTStages) & 1) ^ 1);
+          unsigned char* st = smem + s * kStageBytes;
+          mbar_arrive_expect_tx(full + s, kStageBytes);
+          tma_load_2d(st, &x_map, full + s, t * kTBK, m0);
 #pragma unroll
-    for (int kk = 0; kk < kPBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[kPWM / 16];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[kPWN / 16];
-#pragma unroll
-      for (int i = 0; i < kPWM / 16; ++i) {
-        wmma::load_matrix_sync(a[i], as + (wm + 16 * i) * kPLdA + kk, kPLdA);
-        if (binarize) {
-#pragma unroll
-          for (int e = 0; e < a[i].num_elements; ++e)
-            a[i].x[e] = __bfloat162float(a[i].x[e]) >= 0.f ? plus : minus;
+          for (int b = 0; b < kTBN / 64; ++b)
+            tma_load_2d(st + kABytes + b * kBBoxBytes, &w_map, full + s, n0 + 64 * b, t * kTBK);
         }
       }
+    }
+  } else {  // two consumer warpgroups, 64 rows of each tile each
+    setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    // Slice i (counted over all of this block's tiles) sits in stage
+    // i % kTStages.  Each slice's x fragments are loaded, signed in
+    // registers and fed to wgmma as its register A operand (x is never
+    // written back signed); that slice's products finish before the next
+    // slice's fragments are loaded, and the other warpgroup's products fill
+    // the gap.  A tile's stores drain while the next tile's products run.
+    int it = 0;
+    float acc[kTBN / 2];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile % m_tiles * kTBM, n0 = tile / m_tiles * kTBN;
 #pragma unroll
-      for (int j = 0; j < kPWN / 16; ++j)
-        wmma::load_matrix_sync(b[j], bs + kk * kPLdB + wn + 16 * j, kPLdB);
+      for (int j = 0; j < kTBN / 2; ++j) acc[j] = 0.f;
+      for (int t = 0; t < slices; ++t, ++it) {
+        const int s = it % kTStages;
+        unsigned char* st = smem + s * kStageBytes;
+        mbar_wait(full + s, (it / kTStages) & 1);
+        uint32_t a[kTBK / 16][4];
+        x_fragments(a, st + wg * 64 * 128, warp, lane, binarize);
+        reg_fence(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < kPWM / 16; ++i)
+        for (int kk = 0; kk < kTBK / 16; ++kk)
+          Wgmma<kTBN>::rs<1>(acc, a[kk],
+                             desc_mn_major_128b(st + kABytes + 2048 * kk, kBBoxBytes), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+      }
+
+      const int row_a = m0 + 64 * wg + 16 * warp + lane / 4;
 #pragma unroll
-        for (int j = 0; j < kPWN / 16; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+      for (int j = 0; j < kTBN / 2; j += 2) {
+        const int row = row_a + 8 * ((j >> 1) & 1);
+        const int col = n0 + 8 * (j >> 2) + 2 * (lane % 4);
+        if (row < m && col < n)  // n is even, so col + 1 < n too
+          *reinterpret_cast<float2*>(out + static_cast<long long>(row) * n + col) =
+              make_float2(acc[j], acc[j + 1]);
+      }
     }
   }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < kPWM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < kPWN / 16; ++j) {
-      const int gm = m0 + wm + 16 * i, gn = n0 + wn + 16 * j;
-      if (gm + 16 <= m && gn + 16 <= n) {
-        wmma::store_matrix_sync(out + static_cast<long long>(gm) * n + gn, acc[i][j], n,
-                                wmma::mem_row_major);
-        continue;
-      }
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        if (gm + e / 16 < m && gn + e % 16 < n)
-          out[static_cast<long long>(gm + e / 16) * n + gn + e % 16] = scratch[e];
-      __syncwarp();
-    }
 }
 
-int launch_pipelined(const void* x, const void* w, void* out, int m, int n, int k, int binarize,
-                     void* stream) {
-  const int err = allow_shared_bytes(bnn_matmul_mxu_pipelined_kernel, kPSharedBytes);
-  if (err) return err;
-  const dim3 grid((n + kPBN - 1) / kPBN, (m + kPBM - 1) / kPBM);
-  bnn_matmul_mxu_pipelined_kernel<<<grid, kPThreads, kPSharedBytes,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<float*>(out), m, n, k, binarize != 0);
-  return static_cast<int>(cudaGetLastError());
+int sm_count() {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 0;
+  return sms;
 }
 
 bool aligned(const void* p, unsigned bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+int launch_tma(const void* x, const void* w, void* out, int m, int n, int k, int binarize,
+               void* stream) {
+  if (k % 8 || n % 8 || !aligned(x, 16) || !aligned(w, 16) || !aligned(out, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x_map, w_map;
+  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(m)};
+  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t x_box[2] = {kTBK, kTBM};
+  const cuuint64_t w_dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(k)};
+  const cuuint64_t w_strides[1] = {static_cast<cuuint64_t>(n) * 2};
+  const cuuint32_t w_box[2] = {64, kTBK};
+  int err = hopper::bf16_tensor_map(&x_map, x, 2, x_dims, x_strides, x_box);
+  if (!err) err = hopper::bf16_tensor_map(&w_map, w, 2, w_dims, w_strides, w_box);
+  if (!err) err = allow_shared_bytes(bnn_matmul_mxu_tma_kernel, kTSharedBytes);
+  if (err) return err;
+  const int tiles = (m + kTBM - 1) / kTBM * ((n + kTBN - 1) / kTBN);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const dim3 grid(tiles < sms ? tiles : sms);  // one block per SM
+  bnn_matmul_mxu_tma_kernel<<<grid, kTThreads, kTSharedBytes, static_cast<cudaStream_t>(stream)>>>(
+      x_map, w_map, static_cast<float*>(out), m, n, k, binarize != 0);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -272,8 +321,10 @@ extern "C" int bnn_matmul_mxu_f32(const void* x, const void* w, void* out, int m
 
 extern "C" int bnn_matmul_mxu_bf16(const void* x, const void* w, void* out, int m, int n,
                                    int k, int binarize, void* stream) {
-  // cp.async copies 16 bytes; WMMA stores to device memory need 32-byte alignment
-  if (k % 8 == 0 && n % 8 == 0 && aligned(x, 16) && aligned(w, 16) && aligned(out, 32))
-    return launch_pipelined(x, w, out, m, n, k, binarize, stream);
   return launch<__nv_bfloat16>(x, w, out, m, n, k, binarize, stream);
+}
+
+extern "C" int bnn_matmul_mxu_tma(const void* x, const void* w, void* out, int m, int n, int k,
+                                  int binarize, void* stream) {
+  return launch_tma(x, w, out, m, n, k, binarize, stream);
 }

@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cstdio>
 
 #include <cuda_runtime.h>
 
@@ -12,7 +13,19 @@ constexpr size_t kMaxSharedBytes = 232448;
 // Above this a kernel must opt in to more dynamic shared memory.
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
 
+// Codes an entry point returns beside cudaError_t values: libcuda has no
+// cuTensorMapEncodeTiled, or it refused a tensor map (base + its CUresult).
+constexpr int kNoTensorMapEncoder = 100000;
+constexpr int kTensorMapErrorBase = 200000;
+
 extern "C" const char* error_string(int code) {
+  static thread_local char text[96];
+  if (code == kNoTensorMapEncoder) return "cuTensorMapEncodeTiled not found in libcuda.so.1";
+  if (code >= kTensorMapErrorBase) {
+    snprintf(text, sizeof text, "cuTensorMapEncodeTiled failed with CUresult %d",
+             code - kTensorMapErrorBase);
+    return text;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -7,9 +7,16 @@ bf16 (pre-binarized ±1 weights).  ``binarize_x=True`` takes the sign of x
 (``x >= 0 -> +1``, else -1); ``False`` rounds x to bf16.  With ±1 operands
 the result is exact, so kernel and plain version agree bit for bit.
 
-Any M, N and K are taken (the kernel masks ragged edges).  A CPU tensor runs
-:func:`bnn_matmul_mxu_plain`; a CUDA tensor launches the kernel, counted in
-``bnn_matmul_mxu.launches``.
+Any M, N and K are taken (the kernels mask ragged edges).  A CPU tensor runs
+:func:`bnn_matmul_mxu_plain`; a CUDA tensor launches one of two kernels,
+chosen by :func:`route`:
+
+* ``"tma"``: bf16 x with K and N multiples of 8 and 16-byte aligned
+  operands (the model's path): wgmma fed by TMA;
+* ``"staged"``: float32 x, ragged K or N, or a misaligned operand.
+
+Each launch is counted in ``bnn_matmul_mxu.launches`` and, by route, in
+``bnn_matmul_mxu.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -22,14 +29,28 @@ from repro_torch.kernels.ref import sign
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# One C entry point per route (the staged route has one per type of x).
+_TMA_ENTRY = "bnn_matmul_mxu_tma"
+_STAGED_ENTRY = {torch.float32: "bnn_matmul_mxu_f32", torch.bfloat16: "bnn_matmul_mxu_bf16"}
 _SIGNATURES = {
-    name: ([_P, _P, _P, _I, _I, _I, _I, _P], _I)
-    for name in ("bnn_matmul_mxu_f32", "bnn_matmul_mxu_bf16")
+    name: ([_P, _P, _P, _I, _I, _I, _I, _P], _I) for name in (_TMA_ENTRY, *_STAGED_ENTRY.values())
 }
-_ENTRY = {torch.float32: "bnn_matmul_mxu_f32", torch.bfloat16: "bnn_matmul_mxu_bf16"}
+ROUTES = ("tma", "staged")
+_TMA_ALIGN = 16  # bytes: TMA's rule for a tensor's base address
 
-# Row blocks of the launch grid (grid.y): at most 65535 tiles of 64 rows.
+# Row blocks of the staged kernel's grid (grid.y): at most 65535 tiles of 64 rows.
 _MAX_ROWS = 65535 * 64
+
+
+def route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel a CUDA launch on these (contiguous) operands takes:
+    ``"tma"`` or ``"staged"``.  Pure: it reads dtype, shape and ``data_ptr``
+    only, so it can be asked on any device."""
+    k, n = w.shape
+    if (x.dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+            and x.data_ptr() % _TMA_ALIGN == 0 and w.data_ptr() % _TMA_ALIGN == 0):
+        return "tma"
+    return "staged"
 
 
 def bnn_matmul_mxu_plain(x: torch.Tensor, w: torch.Tensor, *, binarize_x: bool = True) -> torch.Tensor:
@@ -48,7 +69,7 @@ def bnn_matmul_mxu(x: torch.Tensor, w: torch.Tensor, *, binarize_x: bool = True)
     (m, k), (k2, n) = x.shape, w.shape
     if k != k2:
         raise ValueError(f"K mismatch: {k} vs {k2}")
-    if x.dtype not in _ENTRY or w.dtype != torch.bfloat16:
+    if x.dtype not in _STAGED_ENTRY or w.dtype != torch.bfloat16:
         raise ValueError(f"x must be float32 or bf16 and w bf16, got {x.dtype}, {w.dtype}")
     if x.device != w.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
@@ -59,18 +80,23 @@ def bnn_matmul_mxu(x: torch.Tensor, w: torch.Tensor, *, binarize_x: bool = True)
     if m > _MAX_ROWS:
         raise ValueError(f"M={m} is beyond the kernel's grid")
     x, w = x.contiguous(), w.contiguous()
-    out = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0 or k == 0:
+    if k == 0:  # an empty sum: the one case no kernel writes
+        return torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
         return out
+    path = route(x, w)
     lib = _build.library("bnn_matmul_mxu", _SIGNATURES)
     with torch.cuda.device(x.device):
-        code = getattr(lib, _ENTRY[x.dtype])(
+        code = getattr(lib, _TMA_ENTRY if path == "tma" else _STAGED_ENTRY[x.dtype])(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, int(binarize_x),
             _build.stream_of(x),
         )
     _build.check(lib, code, "bnn_matmul_mxu")
     bnn_matmul_mxu.launches += 1
+    bnn_matmul_mxu.launches_by_route[path] += 1
     return out
 
 
 bnn_matmul_mxu.launches = 0
+bnn_matmul_mxu.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -9,8 +9,17 @@ to v's type before the PV product, and the output is ``acc / max(l, 1e-30)``
 — the reference kernel's roundings.  Any S and D from 1 to 128 are taken;
 the reference's block-divides-S rule does not apply.
 
-A CPU tensor runs :func:`flash_attention_plain`; a CUDA tensor launches the
-kernel, counted in ``flash_attention.launches``.
+A CPU tensor runs :func:`flash_attention_plain`; a CUDA tensor launches one
+of three kernels, chosen by :func:`route` from the type, the head dim and
+the operands' alignment:
+
+* ``"tma"``: bf16 with D a multiple of 8 and 16-byte aligned operands (the
+  model's path): wgmma fed by TMA;
+* ``"wmma"``: any other bf16 input (D % 8 != 0, or a misaligned operand);
+* ``"f32"``: float32, on the CUDA cores.
+
+Each launch is counted in ``flash_attention.launches`` and, by route, in
+``flash_attention.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -22,13 +31,28 @@ from repro_torch.kernels import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    name: ([_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P], _I)
-    for name in ("flash_attention_f32", "flash_attention_bf16")
+# One C entry point per route.
+_ENTRY = {
+    "tma": "flash_attention_bf16_tma",
+    "wmma": "flash_attention_bf16",
+    "f32": "flash_attention_f32",
 }
-_ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+_SIGNATURES = {name: ([_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P], _I) for name in _ENTRY.values()}
 MAX_HEAD_DIM = 128
-_MAX_BH = 65535  # grid.y
+_MAX_BH = 65535  # grid.y of the wmma and f32 kernels
+_TMA_ALIGN = 16  # bytes: TMA's rule for a tensor's base address
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA launch on these (contiguous) operands takes:
+    ``"tma"``, ``"wmma"`` or ``"f32"``.  Pure: it reads dtype, head dim and
+    ``data_ptr`` only, so it can be asked on any device."""
+    if q.dtype == torch.float32:
+        return "f32"
+    d = q.shape[-1]
+    if d % 8 == 0 and all(t.data_ptr() % _TMA_ALIGN == 0 for t in (q, k, v)):
+        return "tma"
+    return "wmma"
 
 
 def flash_attention_plain(
@@ -61,7 +85,7 @@ def flash_attention(
             f"q, k, v must share one (BH, S, D) shape, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or all bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must lie on one device")
@@ -78,15 +102,18 @@ def flash_attention(
     out = torch.empty_like(q)
     if bh == 0 or s_len == 0:
         return out
+    path = route(q, k, v)
     lib = _build.library("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
-        code = getattr(lib, _ENTRY[q.dtype])(
+        code = getattr(lib, _ENTRY[path])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s_len, d,
             float(scale), int(causal), _build.stream_of(q),
         )
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(_ENTRY, 0)

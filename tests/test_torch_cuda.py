@@ -131,20 +131,70 @@ def test_bnn_matmul_packed_kernel_matches_plain(cuda, m, n, k):
     assert torch.equal(out.cpu(), ref.bnn_matmul_packed_ref(x, w, k))
 
 
-# bf16 with K and N multiples of 8 takes the pipelined kernel, the rest the
-# staged one.
+def _launched(fn, path, call):
+    """``call()``, asserting it launched ``fn`` once, on route ``path``."""
+    before = dict(fn.launches_by_route)
+    out = call()
+    torch.cuda.synchronize()
+    assert {p: fn.launches_by_route[p] - before[p] for p in before} == {p: int(p == path) for p in before}
+    return out
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 2
+    return out
+
+
+# bf16 with K and N multiples of 8 takes the tma kernel, the rest the staged
+# one.
 @pytest.mark.parametrize("m,n,k", [(64, 64, 32), (100, 70, 513), (3, 130, 64), (130, 264, 1000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bnn_matmul_mxu_kernel_matches_plain(cuda, m, n, k, dtype):
     gen = torch.Generator().manual_seed(m * n + k)
+    path = "tma" if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 else "staged"
     x = torch.randn((m, k), generator=gen).to(dtype)
     x[0, :4] = torch.tensor([0.0, -0.0, float("nan"), -1.0]).to(dtype)
     w = ref.sign(torch.randn((k, n), generator=gen), torch.bfloat16)
-    got = bnn_matmul_mxu.bnn_matmul_mxu(x.to(cuda), w.to(cuda))
+    mxu = bnn_matmul_mxu.bnn_matmul_mxu
+    got = _launched(mxu, path, lambda: mxu(x.to(cuda), w.to(cuda)))
     assert torch.equal(got.cpu(), bnn_matmul_mxu.bnn_matmul_mxu_plain(x, w))
     xi = torch.randint(-8, 8, (m, k), generator=gen).to(dtype)  # exact without binarizing
-    got = bnn_matmul_mxu.bnn_matmul_mxu(xi.to(cuda), w.to(cuda), binarize_x=False)
+    got = _launched(mxu, path, lambda: mxu(xi.to(cuda), w.to(cuda), binarize_x=False))
     assert torch.equal(got.cpu(), bnn_matmul_mxu.bnn_matmul_mxu_plain(xi, w, binarize_x=False))
+
+
+# Every edge of the tma kernel's 128 x 256 x 64 tiles: M one row, one short
+# of a tile and one past it; N and K at the smallest width, one box past a
+# tile and a ragged box.
+@pytest.mark.parametrize("m", [1, 127, 129, 2048])
+@pytest.mark.parametrize("n", [8, 136, 264])
+@pytest.mark.parametrize("k", [8, 72, 520])
+def test_bnn_matmul_mxu_tma_route_edges(cuda, m, n, k):
+    gen = torch.Generator().manual_seed(m + 7 * n + 31 * k)
+    x = torch.randn((m, k), generator=gen).to(torch.bfloat16)
+    x[0, :4] = torch.tensor([0.0, -0.0, float("nan"), -1.0]).to(torch.bfloat16)
+    w = ref.sign(torch.randn((k, n), generator=gen), torch.bfloat16)
+    mxu = bnn_matmul_mxu.bnn_matmul_mxu
+    got = _launched(mxu, "tma", lambda: mxu(x.to(cuda), w.to(cuda)))
+    assert torch.equal(got.cpu(), bnn_matmul_mxu.bnn_matmul_mxu_plain(x, w))
+    xi = torch.randint(-8, 8, (m, k), generator=gen).to(torch.bfloat16)
+    got = _launched(mxu, "tma", lambda: mxu(xi.to(cuda), w.to(cuda), binarize_x=False))
+    assert torch.equal(got.cpu(), bnn_matmul_mxu.bnn_matmul_mxu_plain(xi, w, binarize_x=False))
+
+
+def test_bnn_matmul_mxu_misaligned_operand_takes_staged_route(cuda):
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((130, 64), generator=gen).to(cuda, torch.bfloat16)
+    w = ref.sign(torch.randn((64, 72), generator=gen), torch.bfloat16).to(cuda)
+    want = bnn_matmul_mxu.bnn_matmul_mxu_plain(x, w)
+    mxu = bnn_matmul_mxu.bnn_matmul_mxu
+    for xa, wa in ((_misaligned(x), w), (x, _misaligned(w))):
+        assert torch.equal(_launched(mxu, "staged", lambda: mxu(xa, wa)), want)
 
 
 @pytest.mark.parametrize("k", [100, 513])
@@ -161,22 +211,49 @@ def test_binary_matmul_implementations_agree_on_cuda(cuda, k):
 def test_flash_attention_kernel_matches_plain_f32(cuda, s, d, causal):
     gen = torch.Generator().manual_seed(s * d)
     q, k, v = (torch.randn((3, s, d), generator=gen).to(cuda) for _ in range(3))
-    before = flash_attention.flash_attention.launches
-    got = flash_attention.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert flash_attention.flash_attention.launches == before + 1
+    fa = flash_attention.flash_attention
+    before = fa.launches
+    got = _launched(fa, "f32", lambda: fa(q, k, v, causal=causal))
+    assert fa.launches == before + 1
     want = flash_attention.flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("s,d", [(1, 16), (300, 96), (129, 128), (70, 40)])
+# D a multiple of 8 takes the tma kernel (S at and around its 128-row tiles,
+# D padded to 64, 96 or 128), D = 20 the wmma one.
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 129, 300, 2048])
+@pytest.mark.parametrize("d", [16, 20, 40, 64, 96, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain_bf16(cuda, s, d, causal):
     gen = torch.Generator().manual_seed(s + d)
-    q, k, v = (torch.randn((4, s, d), generator=gen).to(cuda, torch.bfloat16) for _ in range(3))
-    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    bh = 2 if s > 1000 else 4
+    q, k, v = (torch.randn((bh, s, d), generator=gen).to(cuda, torch.bfloat16) for _ in range(3))
+    fa = flash_attention.flash_attention
+    got = _launched(fa, "wmma" if d % 8 else "tma", lambda: fa(q, k, v, causal=causal))
     assert got.dtype == torch.bfloat16
     want = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("scale", [0.7, 0.0, -0.3])
+@pytest.mark.parametrize("d", [64, 20])
+def test_flash_attention_kernel_takes_any_scale_bf16(cuda, scale, d):
+    gen = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn((2, 130, d), generator=gen).to(cuda, torch.bfloat16) for _ in range(3))
+    fa = flash_attention.flash_attention
+    got = _launched(fa, "wmma" if d % 8 else "tma", lambda: fa(q, k, v, scale=scale))
+    want = flash_attention.flash_attention_plain(q, k, v, scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_flash_attention_misaligned_operand_takes_wmma_route(cuda, which):
+    gen = torch.Generator().manual_seed(which)
+    qkv = [torch.randn((3, 100, 64), generator=gen).to(cuda, torch.bfloat16) for _ in range(3)]
+    want = flash_attention.flash_attention_plain(*qkv)
+    qkv[which] = _misaligned(qkv[which])
+    fa = flash_attention.flash_attention
+    got = _launched(fa, "wmma", lambda: fa(*qkv))
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
 
 
