@@ -7,8 +7,9 @@ What it does, in order:
 3. holds every kernel of the packet path against its plain PyTorch version on
    the card, bit for bit (``torch.equal``), at the shapes the main path gives
    it: ``optable_run`` on the headline model's tables for the default and the
-   native-popcount chip (all six opcodes) and on FIVE_TUPLE's (the 64-thread
-   shared-memory case); ``pack_bits_words`` and ``bitpack`` at ragged widths;
+   native-popcount chip (all six opcodes) and on FIVE_TUPLE's (the largest
+   register file), each timed; ``pack_bits_words`` and ``bitpack`` at
+   ragged widths;
    ``packed_layer`` including pad neurons.  Each kernel and its plain version
    are timed with CUDA events;
 4. drives the main path: the headline model (``BnnSpec((32, 64, 32))``,
@@ -21,7 +22,11 @@ What it does, in order:
 5. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
    fixed seed):
    a. holds ``bnn_matmul_packed`` (bit for bit, at the decode and prefill
-      shapes of the model's three projection shapes and at ragged K),
+      shapes of the model's three projection shapes, on the stream and the
+      tiled route, and at ragged K; one decode layer's seven launches also
+      timed as a replayed CUDA graph, in turns with the tiled route and with
+      ``torch.matmul`` of pre-signed bf16 operands, and both routes at M of
+      1 to 16),
       ``bnn_matmul_mxu`` (bit for bit, on its tma route at the model's shape
       and a ragged one, and on its staged route) and ``flash_attention``
       (within 3e-2 in bf16 on its tma and wmma routes, 2e-3 in float32)
@@ -33,7 +38,8 @@ What it does, in order:
       kernel implementations at a prefill-sized activation;
    c. serves 8 requests through the ``Engine`` (all 32 layers, bf16, packed
       XNOR-popcount projections) and checks that every packed projection
-      went through ``bitpack`` and ``bnn_matmul_packed``;
+      went through ``bitpack`` and ``bnn_matmul_packed``, every decode-step
+      launch on its stream route;
    d. scores one 2048-token sequence with ``forward`` under
       ``attn_impl="pallas_flash"`` (one ``flash_attention`` launch per
       layer, every one on the tma route), and holds a 2-layer float32
@@ -162,33 +168,34 @@ def build_kernels() -> None:
                 print(f"  {name}: {line.strip()}")
 
 
-def check_optable(dev, programs: dict, lp, pkt) -> dict:
+def check_optable(dev, programs: dict) -> dict:
     """``optable_run`` against its plain version on each program's parsed
-    chunk; timed on the headline model's (the main path's) shapes."""
-
-    def parsed(lowered, packets):
-        t = executor._device_tables(lowered, dev)
-        return executor.parse_packets(packets, *t.io[:2], num_regs=lowered.num_regs), t
-
-    err = 0
+    chunk, each timed; the record holds the headline model's (the main
+    path's) numbers.  The tables come from the executor's cache, as on the
+    main path, so their plan was made from the host's copy."""
+    err, times = 0, {}
     for label, (lowered, packets) in programs.items():
-        regs, t = parsed(lowered, packets)
-        threads = optable_exec.block_threads(lowered.num_regs, lowered.max_rows)
+        t = executor._device_tables(lowered, dev)
+        regs = executor.parse_packets(packets, *t.io[:2], num_regs=lowered.num_regs)
+        plan, _ = optable_exec.prepare((*t.ops, t.first_write), lowered.num_regs)
+        threads = optable_exec.block_threads(lowered.num_regs, plan.max_deferred, 32 * plan.stride)
         err = max(err, same(
-            f"optable_run {label} ({lowered.num_regs} regs x {CHUNK} packets, {threads} threads/block)",
+            f"optable_run {label} ({lowered.num_regs} regs x {CHUNK} packets, {int(plan.rows.sum())} "
+            f"true rows of {lowered.opcode.size}, {int(plan.deferred.sum())} deferred, scratch "
+            f"{plan.max_deferred}, {threads} threads/block)",
             optable_exec.optable_run(regs, *t.ops, t.first_write),
             optable_exec.optable_run_plain(regs, *t.ops, t.first_write),
         ))
-    regs, t = parsed(lp, pkt)
-    nbytes = 2 * lp.num_regs * CHUNK * 4 + 8 * lp.opcode.size * 4
-    b_ms, b_by = bound_ms(nbytes, 3 * lp.num_ops * CHUNK)  # ALU, mask, write-back per true row
+        times[label] = time_ms(optable_exec.optable_run, regs, *t.ops, t.first_write)
+        print(f"    optable_run {label}: {times[label]} ms per chunk of {CHUNK}")
+        if label == "HEADLINE/rmt":
+            plain = time_ms(optable_exec.optable_run_plain, regs, *t.ops, t.first_write, iters=3)
+            nbytes = 2 * lowered.num_regs * CHUNK * 4 + plan.records.nbytes
+            b_ms, b_by = bound_ms(nbytes, 3 * lowered.num_ops * CHUNK)  # ALU, mask, write-back per true row
     return dict(
         source="src/repro_torch/csrc/optable_exec.cu",
         replaces="src/repro/kernels/optable_exec.py:87",
-        max_abs_err=err,
-        ms=time_ms(optable_exec.optable_run, regs, *t.ops, t.first_write),
-        plain_ms=time_ms(optable_exec.optable_run_plain, regs, *t.ops, t.first_write, iters=3),
-        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=err, ms=times["HEADLINE/rmt"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
     )
 
 
@@ -346,23 +353,58 @@ def lm_projections(cfg) -> list[tuple[int, int, int]]:
     return [(d, q, 1), (d, kv, 2), (q, d, 1), (d, cfg.d_ff, 2), (cfg.d_ff, d, 1)]
 
 
+def graph_of(fn):
+    """A CUDA graph of ``fn()``'s launches, captured after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return g
+
+
+def graphs_in_turns(fns: dict, iters: int = 20) -> dict:
+    """Mean ms of one replay of a CUDA graph of each no-argument call, timed
+    in turns (each in order, then in reverse order) on one card: the launches'
+    device time, without the wrapper's host time between them."""
+    graphs = {name: graph_of(fn) for name, fn in fns.items()}
+    times = {name: [] for name in fns}
+    for name in [*graphs, *reversed(graphs)]:
+        times[name].append(time_ms(graphs[name].replay, iters=iters))
+    for name, ts in times.items():
+        print(f"    graph replay in turns: {name} {ts[0]}, {ts[1]} ms")
+    return {name: sum(ts) / len(ts) for name, ts in times.items()}
+
+
+DECODE_M = 4        # the Engine's slots: the M of every decode-step projection
+GRAPH_LAYERS = 4    # distinct layers' weights per graph: 57 MB, beyond the 50 MB L2
+
+
 def check_bnn_matmul_packed(dev, cfg, gen) -> dict:
     """The packed GEMM bit for bit against its plain version at the decode
-    (M = 4 slots) and prefill (M = 128) shapes of every projection, and at
-    ragged K through ``binary_matmul``.  Timed per decode-step layer: the 7
-    projection launches at M = 4."""
+    (M = 4 slots, stream route) and prefill (M = 128, tiled route) shapes of
+    every projection, and at ragged K through ``binary_matmul``.
+
+    Timed per decode-step layer (the 7 projection launches at M = 4): back to
+    back with events (the wrapper's host time included), and as the device
+    time of a CUDA graph over GRAPH_LAYERS layers' distinct weights (so they
+    stream from memory, as in a real step), in turns with the same graph on
+    the tiled route and with ``torch.matmul`` of the pre-signed bf16 operands
+    at the same seven shapes.  Then both routes at M of 1 to 16, the
+    measurement behind ``bnn_matmul.STREAM_MAX_M``."""
+    fn = bnn_matmul.bnn_matmul_packed
     err = 0
     ms = plain = nbytes = popcs = 0.0
     prefill_ms = 0.0
     for k, n, per_layer in lm_projections(cfg):
         wp, _ = kops.pack_weights(torch.randn((n, k), generator=gen, device=dev))
-        for m in (4, 128):
+        for m, path in ((DECODE_M, "stream"), (128, "tiled")):
             xp = kops._pack_rows(torch.randn((m, k), generator=gen, device=dev))
-            err = max(err, same(f"bnn_matmul_packed M={m} K={k} N={n}",
-                                bnn_matmul.bnn_matmul_packed(xp, wp, k_bits=k),
+            err = max(err, same(f"bnn_matmul_packed M={m} K={k} N={n} ({path})",
+                                routed(fn, path, lambda: fn(xp, wp, k_bits=k)),
                                 ref.bnn_matmul_packed_ref(xp, wp, k)))
-            t = time_ms(lambda: bnn_matmul.bnn_matmul_packed(xp, wp, k_bits=k))
-            if m == 4:
+            t = time_ms(lambda: fn(xp, wp, k_bits=k))
+            if m == DECODE_M:
                 ms += per_layer * t
                 plain += per_layer * time_ms(ref.bnn_matmul_packed_ref, xp, wp, k, iters=3)
                 kw = wp.shape[1]
@@ -370,18 +412,55 @@ def check_bnn_matmul_packed(dev, cfg, gen) -> dict:
                 popcs += per_layer * m * n * kw
             else:
                 prefill_ms += per_layer * t
-    print(f"  bnn_matmul_packed per layer: decode (M=4) {ms} ms, prefill (M=128) {prefill_ms} ms")
+    print(f"  bnn_matmul_packed per layer, back to back: decode (M={DECODE_M}) {ms} ms, "
+          f"prefill (M=128) {prefill_ms} ms")
     for k in (100, 513):
         x = torch.randn((37, k), generator=gen, device=dev)
         w = torch.randn((300, k), generator=gen, device=dev)
         err = max(err, same(f"binary_matmul pallas_packed K={k}",
                             kops.binary_matmul(x, w, implementation="pallas_packed"),
                             kops.binary_matmul(x, w, implementation="ref")))
+
+    # One decode-step layer's seven projections, over GRAPH_LAYERS layers.
+    shapes = [(k, n) for k, n, per_layer in lm_projections(cfg) for _ in range(per_layer)]
+    packed_w = [[kops.pack_weights(torch.randn((n, k), generator=gen, device=dev))[0] for k, n in shapes]
+                for _ in range(GRAPH_LAYERS)]
+    signed_w = [[ref.sign(torch.randn((k, n), generator=gen, device=dev), torch.bfloat16)
+                 for k, n in shapes] for _ in range(GRAPH_LAYERS)]
+
+    def packed_layers(m, path):
+        xs = {k: kops._pack_rows(torch.randn((m, k), generator=gen, device=dev)) for k, _ in shapes}
+        outs = [[torch.empty((m, n), dtype=torch.int32, device=dev) for _, n in shapes]
+                for _ in range(GRAPH_LAYERS)]
+        for layer, layer_out in zip(packed_w, outs):
+            for (k, _), wp, out in zip(shapes, layer, layer_out):
+                if path == "stream" and bnn_matmul.route(xs[k], wp) != "stream":
+                    raise AssertionError(f"M={m} K={k} cannot take the stream route")
+        return lambda: [bnn_matmul._launch(xs[k], wp, out, k, path)
+                        for layer, layer_out in zip(packed_w, outs)
+                        for (k, _), wp, out in zip(shapes, layer, layer_out)]
+
+    xs_signed = {k: ref.sign(torch.randn((DECODE_M, k), generator=gen, device=dev), torch.bfloat16)
+                 for k, _ in shapes}
+    library = lambda: [torch.matmul(xs_signed[k], w) for layer in signed_w  # noqa: E731
+                       for (k, _), w in zip(shapes, layer)]
+    t = graphs_in_turns({"stream": packed_layers(DECODE_M, "stream"),
+                         "tiled": packed_layers(DECODE_M, "tiled"), "torch.matmul": library})
+    graph_ms = {name: v / GRAPH_LAYERS for name, v in t.items()}
+    print(f"  bnn_matmul_packed per decode layer (M={DECODE_M}), graph replay: stream "
+          f"{graph_ms['stream']} ms, tiled {graph_ms['tiled']} ms, torch.matmul bf16 "
+          f"{graph_ms['torch.matmul']} ms; back to back (events) {ms} ms")
+    sweep = {}
+    for m in (1, 2, 4, 8, 12, 16):
+        s_ms = graphs_in_turns({f"stream M={m}": packed_layers(m, "stream"),
+                                f"tiled M={m}": packed_layers(m, "tiled")}, iters=10)
+        sweep[m] = {path: v / GRAPH_LAYERS for path, v in zip(("stream", "tiled"), s_ms.values())}
+    print(f"  route sweep, ms per layer by M (graph replay): {json.dumps(sweep)}")
     b_ms, b_by = bound_ms(nbytes, popcs, POPC_PER_S)
     return dict(source="src/repro_torch/csrc/bnn_matmul.cu",
                 replaces="src/repro/kernels/bnn_matmul.py:56",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                max_abs_err=err, ms=graph_ms["stream"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=graph_ms["torch.matmul"])
 
 
 def check_bnn_matmul_mxu(dev, cfg, gen) -> dict:
@@ -477,9 +556,10 @@ def drive_binary_matmul(dev, cfg, gen) -> dict:
 def drive_serving(dev, cfg, params) -> dict:
     """The slice's main path: the Engine serves LM_REQUESTS requests."""
     rng = np.random.default_rng(SEED)
-    eng = Engine(cfg, params, max_batch=4, max_len=256, device=dev)
-    for i in range(LM_REQUESTS):
-        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129))).astype(np.int32)
+    eng = Engine(cfg, params, max_batch=DECODE_M, max_len=256, device=dev)
+    lengths = [int(rng.integers(16, 129)) for _ in range(LM_REQUESTS)]
+    for i, s in enumerate(lengths):
+        prompt = rng.integers(0, cfg.vocab_size, s).astype(np.int32)
         eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=LM_NEW_TOKENS))
     torch.cuda.synchronize()
     zero_counts()
@@ -498,11 +578,19 @@ def drive_serving(dev, cfg, params) -> dict:
         if launches.get(name, 0) != per_call * calls:
             raise AssertionError(f"{name} launched {launches.get(name, 0)} times, expected "
                                  f"{per_call} per call x {calls} calls: {launches}")
+    # Every decode step (M = DECODE_M) and every prefill of at most
+    # STREAM_MAX_M tokens takes the stream route; longer prefills the tiled one.
+    short = sum(s <= bnn_matmul.STREAM_MAX_M for s in lengths)
+    by_route = dict(bnn_matmul.bnn_matmul_packed.launches_by_route)
+    want = {"stream": per_call * (eng.decode_steps + short), "tiled": per_call * (LM_REQUESTS - short)}
+    if by_route != want:
+        raise AssertionError(f"bnn_matmul_packed launches by route {by_route}, expected {want}")
     print(f"serving path ({LM_ARCH}, {cfg.num_layers} layers, bf16, bnn_packed): "
           f"{LM_REQUESTS} requests, wall {wall} s; prefill {eng.prefill_seconds} s for "
           f"{LM_REQUESTS} prompts; decode {eng.decode_seconds} s for {eng.decode_steps} steps "
           f"({eng.decode_seconds / eng.decode_steps * 1e3} ms/step), {eng.decode_tokens} tokens "
-          f"-> {eng.decode_tokens / eng.decode_seconds} decode tokens/s; launches {launches}")
+          f"-> {eng.decode_tokens / eng.decode_seconds} decode tokens/s; launches {launches}; "
+          f"bnn_matmul_packed by route {by_route}")
     print(f"  sample: request 0 -> {done[0].output[:8]}...")
     return launches
 
@@ -565,7 +653,7 @@ def main() -> int:
             torch.from_numpy(traffic.generate(SCENARIO, CHUNK, FIVE_TUPLE.input_bits, seed=SEED)).to(dev)),
     }
     records = {
-        "optable_run": check_optable(dev, programs, lp, pkt),
+        "optable_run": check_optable(dev, programs),
         "pack_bits_words": check_bitpack(dev, layer_inputs),
         "packed_layer": check_packed_layer(dev, lp, layer_inputs),
     }

@@ -9,20 +9,34 @@
 // as int32, exact.  Each pad bit agrees (0 with 0) and the affine term
 // removes it.
 //
-// What bounds it on this card: for decode (M of 1 to 4) the weight words,
+// What bounds it on this card: for decode (M of 1 to 16) the weight words,
 // which are read once; in prefill (M of 100s) the integer operations: five
 // per word pair (xor, not, popc, add, and the load), against 64 INT32 lanes
 // per SM, with popc at a quarter of that rate (16 per SM per clock).
 //
-// Design: the TPU kernel carried the sum across a sequential Kw grid axis in
-// its output block.  Here blocks run in no order, so each block owns a
-// BM x 64 output tile and loops over Kw itself, staging 32-word slices of
-// its x rows and w rows in shared memory (row stride 33 words, so the 16
-// rows a half-warp reads sit in 16 banks).  Each of the 256 threads keeps
-// TM x 4 int32 sums in registers.  Ragged M, N and Kw are masked here, not
-// padded by the caller: rows past M or N load 0 and are never stored, and
-// the word loop stops at Kw.  BM is 16 (TM = 1) for M <= 16, so a decode
-// step does not spend 64-row tiles on 1 to 4 rows; else 64 (TM = 4).
+// Two routes, one entry point each; kernels/bnn_matmul.py::route picks one.
+//
+// "stream" (M <= 16, Kw a multiple of 4, 16-byte aligned operands): the
+// decode route, which has to stream the weights at the card's memory rate.
+// A block stages x's M x Kw words once in shared memory.  Each row of w is
+// read by a team of LPR lanes (8, 16 or 32: the fewest that cover the row
+// in at most four 16-byte loads a lane), neighbouring lanes on neighbouring
+// addresses, all of a lane's loads issued before any is used.  Each lane
+// does popc(~(x ^ w)) against every row of x, the team reduces by
+// __shfl_xor_sync, and the affine term is applied once.  The grid has one
+// team per output column, so every SM holds many warps and tens of KB of
+// loads in flight, and a launch is a round trip or two to memory beyond its
+// launch latency.  Ragged N is masked (teams past N load nothing and store
+// nothing).
+//
+// "tiled" (every other shape: prefill, scoring, ragged Kw, sliced views):
+// blocks run in no order, so each block owns a BM x 64 output tile and loops
+// over Kw itself, staging 32-word slices of its x rows and w rows in shared
+// memory (row stride 33 words, so the 16 rows a half-warp reads sit in 16
+// banks).  Each of the 256 threads keeps TM x 4 int32 sums in registers.
+// Ragged M, N and Kw are masked here, not padded by the caller: rows past M
+// or N load 0 and are never stored, and the word loop stops at Kw.  BM is 16
+// (TM = 1) for M <= 16, else 64 (TM = 4).
 
 #include "common.cuh"
 
@@ -98,11 +112,101 @@ int launch(const void* x, const void* w, void* out, int m, int n, int kw, int k_
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// "stream": the decode route
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamThreads = 128;
+constexpr int kStreamLoads = 4;    // 16-byte loads a lane issues before using any
+constexpr int kStreamMaxRows = 16;  // kernels/bnn_matmul.py STREAM_MAX_M
+
+template <int MT, int LPR>
+__global__ void __launch_bounds__(kStreamThreads)
+bnn_matmul_stream_kernel(const uint4* __restrict__ x, const uint4* __restrict__ w,
+                         int* __restrict__ out, int m, int n, int chunks, int affine) {
+  extern __shared__ uint4 xs[];  // [m][chunks]
+  for (int i = threadIdx.x; i < m * chunks; i += kStreamThreads) xs[i] = x[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int lr = lane % LPR;  // this lane's place in its row's team
+  const int col = (blockIdx.x * (kStreamThreads / 32) + (threadIdx.x >> 5)) * (32 / LPR) + lane / LPR;
+  const bool live = col < n;
+  const uint4* wr = w + static_cast<long long>(live ? col : 0) * chunks;
+  int acc[MT] = {};
+  for (int c0 = lr; c0 < chunks; c0 += LPR * kStreamLoads) {
+    uint4 wv[kStreamLoads];
+#pragma unroll
+    for (int u = 0; u < kStreamLoads; ++u) {
+      const int c = c0 + u * LPR;
+      wv[u] = live && c < chunks ? __ldg(wr + c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kStreamLoads; ++u) {
+      const int c = c0 + u * LPR;
+      if (c >= chunks) break;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (i < m) {
+          const uint4 a = xs[i * chunks + c];
+          acc[i] += __popc(~(a.x ^ wv[u].x)) + __popc(~(a.y ^ wv[u].y)) +
+                    __popc(~(a.z ^ wv[u].z)) + __popc(~(a.w ^ wv[u].w));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (i < m && i % LPR == lr) out[static_cast<long long>(i) * n + col] = 2 * acc[i] + affine;
+    }
+  }
+}
+
+template <int MT, int LPR>
+int launch_stream(const void* x, const void* w, void* out, int m, int n, int chunks, int affine,
+                  cudaStream_t stream) {
+  constexpr int kCols = kStreamThreads / 32 * (32 / LPR);  // output columns per block
+  const size_t smem = static_cast<size_t>(m) * chunks * sizeof(uint4);
+  bnn_matmul_stream_kernel<MT, LPR><<<(n + kCols - 1) / kCols, kStreamThreads, smem, stream>>>(
+      static_cast<const uint4*>(x), static_cast<const uint4*>(w), static_cast<int*>(out), m, n,
+      chunks, affine);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MT>
+int launch_stream_mt(const void* x, const void* w, void* out, int m, int n, int chunks,
+                     int affine, cudaStream_t stream) {
+  if (chunks <= 8 * kStreamLoads) return launch_stream<MT, 8>(x, w, out, m, n, chunks, affine, stream);
+  if (chunks <= 16 * kStreamLoads) return launch_stream<MT, 16>(x, w, out, m, n, chunks, affine, stream);
+  return launch_stream<MT, 32>(x, w, out, m, n, chunks, affine, stream);
+}
+
 }  // namespace
 
-extern "C" int bnn_matmul_packed(const void* x, const void* w, void* out, int m, int n,
-                                 int kw, int k_bits, void* stream) {
+extern "C" int bnn_matmul_packed_tiled(const void* x, const void* w, void* out, int m, int n,
+                                       int kw, int k_bits, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return m <= 16 ? launch<1>(x, w, out, m, n, kw, k_bits, s)
                  : launch<4>(x, w, out, m, n, kw, k_bits, s);
+}
+
+extern "C" int bnn_matmul_packed_stream(const void* x, const void* w, void* out, int m, int n,
+                                        int kw, int k_bits, void* stream) {
+  const uintptr_t both = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w);
+  if (m < 1 || m > kStreamMaxRows || kw % 4 || both % 16 ||
+      static_cast<size_t>(m) * kw * 4 > kDefaultSharedBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int chunks = kw / 4;
+  const int affine = static_cast<int>(-2LL * kw * 32 + k_bits);
+  if (m <= 4) return launch_stream_mt<4>(x, w, out, m, n, chunks, affine, s);
+  if (m <= 8) return launch_stream_mt<8>(x, w, out, m, n, chunks, affine, s);
+  return launch_stream_mt<16>(x, w, out, m, n, chunks, affine, s);
 }

@@ -57,6 +57,7 @@ from repro_torch.dataplane.lowering import LoweredProgram
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bitpack import pack_bits_words
 from repro_torch.kernels.optable_exec import optable_run, optable_run_segmented
+from repro_torch.kernels.optable_exec import prepare as prepare_optable
 from repro_torch.kernels.packed_layer import packed_layer
 
 DEFAULT_CHUNK = 1 << 15  # 32768 packets per device dispatch
@@ -118,6 +119,8 @@ def _device_tables(lp: LoweredProgram, device: torch.device) -> _DeviceTables:
             ),
             runs=lp.opcode_runs(),
         )
+        if t.first_write.device.type == "cuda":  # the kernel's plan, made from the host copy
+            prepare_optable((*t.ops, t.first_write), lp.num_regs, (*ops, lp.first_write))
         _TABLE_CACHE[key] = t
     return t
 

@@ -31,8 +31,13 @@ NVCC_FLAGS = (
 )
 
 # Shared memory one block may use on Hopper (227 KB of the SM's 256 KB);
-# csrc/common.cuh holds the same number for the C side.
+# csrc/common.cuh holds the same number for the C side.  An SM's blocks
+# together may use 228 KB, less 1 KB the hardware reserves for each block.
 MAX_SHARED_BYTES = 232448
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
+SM_MAX_THREADS = 2048
+SM_MAX_BLOCKS = 32
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,4 +1,4 @@
-"""Bit-packed XNOR-popcount GEMM: CUDA kernel + plain PyTorch version.
+"""Bit-packed XNOR-popcount GEMM: CUDA kernels + plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/bnn_matmul.py::
 bnn_matmul_packed`` (source: ``csrc/bnn_matmul.cu``).  Operands are sign bits
@@ -8,9 +8,17 @@ packed 32 to a uint32 word, carried as int32 bit views and zero-padded past
     out[m, n] = 2 * sum_w popcount(~(x[m, w] ^ w[n, w])) - 2 * Kw * 32 + k_bits
 
 (M, N) int32, exact.  Unlike the TPU kernel, any M, N and Kw are taken: the
-kernel masks ragged edges itself.  A CPU tensor runs the plain version
-(``ref.bnn_matmul_packed_ref``); a CUDA tensor launches the kernel, counted
-in ``bnn_matmul_packed.launches``.
+kernels mask ragged edges themselves.  A CPU tensor runs the plain version
+(``ref.bnn_matmul_packed_ref``); a CUDA tensor launches one of two kernels,
+chosen by :func:`route`:
+
+* ``"stream"``: M <= ``STREAM_MAX_M`` (decode), Kw a multiple of 4 and
+  16-byte aligned operands: each weight row read once in 16-byte loads by a
+  team of lanes, x staged in shared memory;
+* ``"tiled"``: every other shape (prefill, scoring, ragged Kw, sliced views).
+
+Each launch is counted in ``bnn_matmul_packed.launches`` and, by route, in
+``bnn_matmul_packed.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -23,10 +31,29 @@ from repro_torch.kernels.ref import bnn_matmul_packed_ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"bnn_matmul_packed": ([_P, _P, _P, _I, _I, _I, _I, _P], _I)}
+ROUTES = ("stream", "tiled")
+_ENTRY = {path: f"bnn_matmul_packed_{path}" for path in ROUTES}
+_SIGNATURES = {name: ([_P, _P, _P, _I, _I, _I, _I, _P], _I) for name in _ENTRY.values()}
 
-# Row blocks of the launch grid (grid.y): at most 65535 tiles of 64 rows.
+# The stream route's limits (csrc/bnn_matmul.cu): at most STREAM_MAX_M rows of
+# x, staged whole in the default 48 KB of shared memory, read as 16-byte words.
+STREAM_MAX_M = 16
+_STREAM_X_BYTES = 48 * 1024
+_ALIGN = 16
+
+# Row blocks of the tiled kernel's grid (grid.y): at most 65535 tiles of 64 rows.
 _MAX_ROWS = 65535 * 64
+
+
+def route(x_packed: torch.Tensor, w_packed: torch.Tensor) -> str:
+    """The kernel a CUDA launch on these (contiguous) operands takes:
+    ``"stream"`` or ``"tiled"``.  Pure: it reads shape and ``data_ptr``
+    only, so it can be asked on any device."""
+    m, kw = x_packed.shape
+    if (1 <= m <= STREAM_MAX_M and kw % 4 == 0 and m * kw * 4 <= _STREAM_X_BYTES
+            and x_packed.data_ptr() % _ALIGN == 0 and w_packed.data_ptr() % _ALIGN == 0):
+        return "stream"
+    return "tiled"
 
 
 def bnn_matmul_packed(
@@ -62,15 +89,23 @@ def bnn_matmul_packed(
         return out
     if kw == 0:
         return out.fill_(k_bits)
+    return _launch(x_packed, w_packed, out, k_bits, route(x_packed, w_packed))
+
+
+def _launch(x_packed, w_packed, out, k_bits: int, path: str) -> torch.Tensor:
+    """Launch route ``path``'s kernel on checked, contiguous operands."""
+    m, kw = x_packed.shape
     lib = _build.library("bnn_matmul", _SIGNATURES)
     with torch.cuda.device(x_packed.device):
-        code = lib.bnn_matmul_packed(
-            x_packed.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, n, kw, k_bits,
+        code = getattr(lib, _ENTRY[path])(
+            x_packed.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, out.shape[1], kw, k_bits,
             _build.stream_of(x_packed),
         )
     _build.check(lib, code, "bnn_matmul_packed")
     bnn_matmul_packed.launches += 1
+    bnn_matmul_packed.launches_by_route[path] += 1
     return out
 
 
 bnn_matmul_packed.launches = 0
+bnn_matmul_packed.launches_by_route = dict.fromkeys(ROUTES, 0)

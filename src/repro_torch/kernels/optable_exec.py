@@ -9,35 +9,55 @@ how it is laid out).  The register file is transposed — ``(num_regs, batch)``
 
 ``optable_run`` dispatches on the register file's device: a CPU tensor runs
 :func:`optable_run_plain`, a CUDA tensor launches the kernel (or raises).
+The kernel does not read the tables themselves but a :class:`Plan` made from
+them once on the host (:func:`prepare`, cached by table tensor): pad rows
+cut, each row packed into one record, and the rows whose results must wait
+for the element's end marked.  Planning checks the tables, so a launch on
+tables already planned reads nothing back from the device.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import weakref
 
+import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core import bitops
 from repro_torch.dataplane import lowering
 from repro_torch.kernels import _build
 
-BLOCK_THREADS = (128, 64, 32)
+BLOCK_THREADS = (256, 128, 64, 32)
+ROW_GROUP = 32  # rows of one opcode a thread computes before it writes any (csrc kRowGroup)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"optable_run": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int)}
+_SIGNATURES = {"optable_run": ([_P, _P, _P] + [_I] * 6 + [_P], ctypes.c_int)}
+_SLOT_LIMIT = 1 << 16  # a record's slot fields are 16 bits wide
 
 
-def block_threads(num_regs: int, max_rows: int) -> int:
-    """Packets per block: the most of ``BLOCK_THREADS`` whose register files
-    and row scratch, ``(num_regs + max_rows) * 4`` bytes each, fit one block's
-    shared memory."""
+def block_threads(num_regs: int, scratch_rows: int, fixed_bytes: int = 0) -> int:
+    """Packets per block: of ``BLOCK_THREADS``, the one that keeps the most
+    packets resident on an SM (the larger block on a tie), where a block
+    holds ``(num_regs + scratch_rows) * 4`` bytes of shared memory a packet
+    beside ``fixed_bytes`` of its own."""
+    best, most = None, 0
     for threads in BLOCK_THREADS:
-        if (num_regs + max_rows) * 4 * threads <= _build.MAX_SHARED_BYTES:
-            return threads
-    raise ValueError(
-        f"{num_regs} registers + {max_rows} rows do not fit shared memory "
-        f"even at {BLOCK_THREADS[-1]} packets per block"
-    )
+        smem = (num_regs + scratch_rows) * 4 * threads + fixed_bytes
+        if smem > _build.MAX_SHARED_BYTES:
+            continue
+        blocks = min(_build.SM_SHARED_BYTES // (smem + _build.BLOCK_RESERVED_BYTES),
+                     _build.SM_MAX_THREADS // threads, _build.SM_MAX_BLOCKS)
+        if blocks * threads > most:
+            best, most = threads, blocks * threads
+    if best is None:
+        raise ValueError(
+            f"{num_regs} registers + {scratch_rows} scratch rows do not fit shared memory "
+            f"even at {BLOCK_THREADS[-1]} packets per block"
+        )
+    return best
 
 
 def _check_args(regs, tables) -> None:
@@ -51,6 +71,13 @@ def _check_args(regs, tables) -> None:
             raise ValueError(f"op-table on {t.device}, register file on {regs.device}")
 
 
+def _bad_tables(num_regs: int) -> ValueError:
+    return ValueError(
+        f"op-table holds an opcode outside 0..{lowering.NUM_DENSE_OPCODES - 1} "
+        f"or a slot outside 0..{num_regs - 1}"
+    )
+
+
 def _check_values(regs, opcode, dst, src0, src1) -> None:
     """Reject opcodes outside the dense ISA and slots outside the register
     file before any kernel can read or write out of bounds."""
@@ -59,10 +86,160 @@ def _check_values(regs, opcode, dst, src0, src1) -> None:
     for slots in (dst, src0, src1):
         bad |= (slots < 0) | (slots >= num_regs)
     if bool(bad.any()):
-        raise ValueError(
-            f"op-table holds an opcode outside 0..{lowering.NUM_DENSE_OPCODES - 1} "
-            f"or a slot outside 0..{num_regs - 1}"
-        )
+        raise _bad_tables(num_regs)
+
+
+# ---------------------------------------------------------------------------
+# The plan: what the kernel walks instead of the raw tables
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Plan:
+    """How the kernel runs one op-table, made once on the host.
+
+    Per element: ``rows`` true rows (:func:`trailing_pads`), the register
+    ``zero_reg`` that its cut pads leave 0 (-1 for none), and ``deferred``,
+    the rows whose results wait in scratch for the element's end
+    (:func:`deferred_rows`).  ``records`` is what the kernel reads: per
+    element, ``stride`` 16-byte units holding a header (record count,
+    deferred count, ``zero_reg``, the word offset of the write-back list),
+    one record per row, each run of one opcode padded to whole groups of
+    ``ROW_GROUP``, and the deferred rows' write-back list,
+    ``dst | first_write << 16`` each.
+    """
+
+    rows: np.ndarray          # (E,) int32
+    zero_reg: np.ndarray      # (E,) int32
+    deferred: np.ndarray      # (E, max_rows) bool, False past rows[e]
+    max_deferred: int
+    stride: int
+    records: np.ndarray       # (E, 4 * stride) uint32
+
+
+def trailing_pads(dst, mask, first_write) -> tuple[np.ndarray, np.ndarray]:
+    """Per element: the rows before its trailing pads, and the register
+    those pads zero (-1 where there are none).
+
+    A row with mask 0 and first_write 1 overwrites its destination with 0,
+    whatever its opcode and sources.  The longest trailing run of such rows
+    into one register is cut; its one effect is that register being 0 after
+    the element.  ``lowering`` pads with such rows into the null register, so
+    the count is ``LoweredProgram.rows_per_element``.
+    """
+    num_el, max_rows = dst.shape
+    rows = np.full(num_el, max_rows, np.int32)
+    zero = np.full(num_el, -1, np.int32)
+    is_pad = (mask == 0) & (first_write != 0)
+    for e in range(num_el):
+        r = max_rows
+        while r > 0 and is_pad[e, r - 1] and dst[e, r - 1] == dst[e, max_rows - 1]:
+            r -= 1
+        if r < max_rows:
+            rows[e], zero[e] = r, dst[e, max_rows - 1]
+    return rows, zero
+
+
+def deferred_rows(dst, src0, src1, rows: int) -> np.ndarray:
+    """Which of an element's first ``rows`` rows must wait for its end.
+
+    Every row reads the register file as it stood entering the element.
+    A register X is a hazard when a row reads X (as src0 or src1) after X's
+    first writer in the element; every row writing a hazard is deferred and
+    written back at the element's end, in row order, so a FOLD continuation
+    still follows its first writer.  Every other row writes back at once: no
+    later row of the element reads its destination.
+    """
+    first: dict[int, int] = {}
+    for r, x in enumerate(dst[:rows].tolist()):
+        first.setdefault(x, r)
+    hazard = {x for r, pair in enumerate(zip(src0[:rows].tolist(), src1[:rows].tolist()))
+              for x in pair if first.get(x, rows) < r}
+    return np.isin(dst[:rows], sorted(hazard))
+
+
+def make_plan(opcode, dst, src0, src1, imm0, imm1, mask, first_write, num_regs: int) -> Plan:
+    """The :class:`Plan` of numpy op-tables for a ``num_regs`` register file.
+
+    Raises ``ValueError`` on an opcode outside the dense ISA or a slot
+    outside the register file.
+    """
+    opcode, dst, src0, src1, first_write = (
+        np.asarray(t).astype(np.int64) for t in (opcode, dst, src0, src1, first_write))
+    imm0, imm1, mask = (np.ascontiguousarray(t).view(np.uint32) for t in (imm0, imm1, mask))
+    if ((opcode < 0) | (opcode >= lowering.NUM_DENSE_OPCODES)).any() or any(
+            ((s < 0) | (s >= num_regs)).any() for s in (dst, src0, src1)):
+        raise _bad_tables(num_regs)
+    num_el, max_rows = opcode.shape
+    rows, zero = trailing_pads(dst, mask, first_write)
+    deferred = np.zeros((num_el, max_rows), bool)
+    for e in range(num_el):
+        deferred[e, :rows[e]] = deferred_rows(dst[e], src0[e], src1[e], int(rows[e]))
+    max_def = int(deferred.sum(1).max(initial=0))
+    if num_regs + max_def > _SLOT_LIMIT:
+        raise ValueError(f"{num_regs} registers + {max_def} scratch rows exceed {_SLOT_LIMIT} slots")
+
+    bodies, backs = [], []
+    for e in range(num_el):
+        n = int(rows[e])
+        dfr = deferred[e, :n]
+        # A deferred row stores into scratch slot num_regs + k; the rest
+        # store (first_write) or add into their destination.
+        target = np.where(dfr, num_regs + np.cumsum(dfr) - 1, dst[e, :n])
+        store = dfr | (first_write[e, :n] != 0)
+        # SHR_AND_IMM's imm1 folds into the mask: one AND per row.
+        keep = np.where(opcode[e, :n] == lowering.SHR_AND_IMM, imm1[e, :n] & mask[e, :n], mask[e, :n])
+        body = np.stack([src0[e, :n] | (src1[e, :n] << 16),
+                         target | (opcode[e, :n] << 16) | (store.astype(np.int64) << 20),
+                         imm0[e, :n], keep], 1).astype(np.uint32)
+        # Each run of one opcode is padded to whole groups of ROW_GROUP rows
+        # (rows of that opcode adding 0 into r0), so a group has one opcode.
+        cuts = np.flatnonzero(np.diff(opcode[e, :n])) + 1
+        groups = []
+        for run in np.split(np.arange(n), cuts):
+            if len(run):
+                pad = np.zeros((-len(run) % ROW_GROUP, 4), np.uint32)
+                pad[:, 1] = opcode[e, run[0]] << 16
+                groups += [body[run], pad]
+        bodies.append(np.concatenate(groups) if groups else np.zeros((0, 4), np.uint32))
+        backs.append(dst[e, :n][dfr] | ((first_write[e, :n][dfr] != 0).astype(np.int64) << 16))
+    body_rows = max((len(b) for b in bodies), default=0)
+    stride = 1 + body_rows + -(-max_def // 4)
+    records = np.zeros((num_el, 4 * stride), np.uint32)
+    for e, (body, back) in enumerate(zip(bodies, backs)):
+        records[e, :4] = (len(body), len(back), int(zero[e]) & 0xFFFFFFFF, 4 + 4 * body_rows)
+        records[e, 4:4 + body.size] = body.reshape(-1)
+        records[e, 4 + 4 * body_rows:4 + 4 * body_rows + len(back)] = back
+    return Plan(rows=rows, zero_reg=zero, deferred=deferred, max_deferred=max_def,
+                stride=stride, records=records)
+
+
+# Plans of the table tensors kernels ran on, keyed by the opcode tensor.  An
+# entry holds weak references to all eight tensors and their versions, so
+# tables edited in place, or other tensors, are planned (and checked) anew,
+# and an entry goes with its opcode tensor.
+_PLANS = WeakIdKeyDictionary()
+
+
+def prepare(tables: tuple, num_regs: int, host_tables: tuple | None = None) -> tuple[Plan, torch.Tensor]:
+    """The plan of ``tables`` (the 8 op-table tensors, on one device) for a
+    ``num_regs`` register file, and its records on that device; cached.
+
+    ``host_tables``, the same tables as numpy arrays, spares the copy from
+    the device (the executor passes its ``LoweredProgram``'s).  Raises on
+    malformed tables.
+    """
+    versions = (num_regs, *(t._version for t in tables))
+    hit = _PLANS.get(tables[0])
+    if hit is not None:
+        refs, seen, plan, records = hit
+        if seen == versions and all(ref() is t for ref, t in zip(refs, tables)):
+            return plan, records
+    if host_tables is None:
+        host_tables = tuple(t.cpu().numpy() for t in tables)
+    plan = make_plan(*host_tables, num_regs)
+    records = torch.from_numpy(plan.records.view(np.int32)).to(tables[0].device)
+    _PLANS[tables[0]] = (tuple(weakref.ref(t) for t in tables), versions, plan, records)
+    return plan, records
 
 
 def optable_run(
@@ -88,21 +265,21 @@ def optable_run(
         return optable_run_plain(regs, *tables)
     if regs.device.type != "cuda":
         raise ValueError(f"optable_run runs on CPU or CUDA tensors, got {regs.device}")
-    _check_values(regs, opcode, dst, src0, src1)
-    regs = regs.contiguous()
-    tables = tuple(t.contiguous() for t in tables)
     num_regs, batch = regs.shape
-    num_el, rows = opcode.shape
+    plan, records = prepare(tables, num_regs)
+    regs = regs.contiguous()
     out = torch.empty_like(regs)
+    num_el = opcode.shape[0]
     if batch == 0 or num_el == 0:
         out.copy_(regs)
         return out
-    threads = block_threads(num_regs, rows)
+    threads = block_threads(num_regs, plan.max_deferred, 2 * plan.stride * 16)
     lib = _build.library("optable_exec", _SIGNATURES)
     with torch.cuda.device(regs.device):
         code = lib.optable_run(
-            *(t.data_ptr() for t in tables), regs.data_ptr(), out.data_ptr(),
-            num_regs, batch, num_el, rows, threads, _build.stream_of(regs),
+            records.data_ptr(), regs.data_ptr(), out.data_ptr(),
+            num_regs, batch, num_el, plan.stride, plan.max_deferred, threads,
+            _build.stream_of(regs),
         )
     _build.check(lib, code, "optable_run")
     optable_run.launches += 1
@@ -129,9 +306,10 @@ def optable_run_segmented(
 
     ``runs`` is ``LoweredProgram.opcode_runs()``; it must cover the elements
     in order.  Bit-identical to one :func:`optable_run` over the whole table,
-    which is what this does: the kernel's opcode ``switch`` is warp-uniform,
-    so narrowing the ALU per run (the reference's reason for segments) buys
-    nothing, and one launch keeps the register file on chip throughout.
+    which is what this does: the kernel branches once per group of rows on
+    their opcode, alike across a block, so narrowing the ALU per run (the
+    reference's reason for segments) buys nothing, and one launch keeps the
+    register file on chip throughout.
     """
     expect = 0
     for start, stop, _ in runs:
@@ -157,7 +335,7 @@ def optable_run_plain(
     """The kernel's semantics in plain PyTorch, on any device.
 
     One vectorized step per element over uint32 carriers.  Pass 2 reproduces
-    the kernel's in-order write-back exactly: a row counts unless a *later*
+    the in-order write-back exactly: a row counts unless a *later*
     first_write row targets the same slot, slots with a first_write row start
     from 0, the others from their incoming value.
     """

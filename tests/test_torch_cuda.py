@@ -67,6 +67,80 @@ def test_optable_kernel_rejects_malformed_tables(cuda):
         optable_exec.optable_run(torch.zeros((lp.num_regs, 4), dtype=torch.int32, device=cuda), *tables)
 
 
+def _hand_tables(cuda):
+    """Two elements over r0..r4 and the null register r5, padded as
+    ``lowering`` pads: a FOLD (rows 0-1) whose first writer is deferred,
+    since row 2 reads r1 after it; r2 rewritten in place twice (rows 3-4,
+    both deferred, the later first write wins); r4 written at once."""
+    full = 0xFFFFFFFF
+    rows = [
+        [(0, 1, 0, 5, 0, 0, full, 1), (4, 1, 2, 5, 1, 0, full, 0), (0, 3, 1, 5, 5, 0, full, 1),
+         (0, 2, 2, 5, 0xF, 0, full, 1), (2, 2, 2, 4, 0, 0, full, 1), (1, 4, 0, 5, 4, 0xFF, full, 1)],
+        [(2, 0, 1, 2, 0, 0, 0xFFFF, 1)],
+    ]
+    pad = (1, 5, 5, 5, 0, 0, 0, 1)
+    arr = np.array([el + [pad] * (7 - len(el)) for el in rows], np.int64)
+    return tuple(torch.from_numpy(arr[:, :, i].astype(np.uint32).view(np.int32)).to(cuda)
+                 for i in range(len(TABLES)))
+
+
+def _any_regs(num_regs, batch, cuda, seed):
+    """Arbitrary registers, the null (last) one nonzero."""
+    rng = np.random.default_rng(seed)
+    regs = rng.integers(0, 1 << 32, (num_regs, batch), dtype=np.uint64).astype(np.uint32)
+    regs[-1] = 0xDEADBEEF
+    return torch.from_numpy(regs.view(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("program", ["hand", "headline", "headline_popcnt", "five_tuple"])
+@pytest.mark.parametrize("batch", [1, 257, 40000])
+def test_optable_kernel_hazards_pads_and_nonzero_null(cuda, program, batch):
+    if program == "hand":
+        tables, num_regs = _hand_tables(cuda), 6
+    else:
+        sizes = (128, 64, 32, 2) if program == "five_tuple" else (32, 64, 32)
+        lp = _lowered(sizes, program == "headline_popcnt", seed=9)
+        tables, num_regs = tuple(executor._i32(getattr(lp, n)).to(cuda) for n in TABLES), lp.num_regs
+    regs = _any_regs(num_regs, batch, cuda, seed=batch)
+    out = optable_exec.optable_run(regs, *tables)
+    want = optable_exec.optable_run_plain(regs, *tables)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert not out[-1].any()  # every element here ends in pads into the null register
+
+
+def test_optable_second_launch_makes_no_host_sync(cuda):
+    lp = _lowered((32, 64, 32), seed=11)
+    tables = tuple(executor._i32(getattr(lp, n)).to(cuda) for n in TABLES)
+    regs = _any_regs(lp.num_regs, 1000, cuda, seed=3)
+    executor._TABLE_CACHE.clear()
+    t = executor._device_tables(lp, cuda)  # planned from the host's copy
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        with pytest.raises(RuntimeError):  # the first launch reads its tables back once
+            optable_exec.optable_run(regs, *tables)
+        torch.cuda.set_sync_debug_mode(0)
+        optable_exec.optable_run(regs, *tables)
+        torch.cuda.set_sync_debug_mode("error")
+        out = optable_exec.optable_run(regs, *tables)
+        out_exec = optable_exec.optable_run(regs, *t.ops, t.first_write)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = optable_exec.optable_run_plain(regs, *tables)
+    assert torch.equal(out, want) and torch.equal(out_exec, want)
+
+
+def test_optable_kernel_rejects_a_table_edited_after_a_launch(cuda):
+    lp = _lowered((5, 3))
+    tables = [executor._i32(getattr(lp, n)).to(cuda) for n in TABLES]
+    regs = torch.zeros((lp.num_regs, 4), dtype=torch.int32, device=cuda)
+    optable_exec.optable_run(regs, *tables)
+    tables[2][0, 0] = lp.num_regs  # src0 outside the register file
+    with pytest.raises(ValueError):
+        optable_exec.optable_run(regs, *tables)
+
+
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 100])
 def test_bitpack_kernels_match_plain(cuda, n):
     gen = torch.Generator().manual_seed(n)
@@ -129,6 +203,53 @@ def test_bnn_matmul_packed_kernel_matches_plain(cuda, m, n, k):
     torch.cuda.synchronize()
     assert bnn_matmul.bnn_matmul_packed.launches == before + 1
     assert torch.equal(out.cpu(), ref.bnn_matmul_packed_ref(x, w, k))
+
+
+def _packed_operands(rng, m, n, kw, k_bits):
+    """Random packed operands whose bits past ``k_bits`` are zero in both."""
+    x, w = _words(rng, m, kw), _words(rng, n, kw)
+    x[0], w[0] = -1, 0  # all-ones and all-zero words
+    keep = [(1 << min(32, max(0, k_bits - 32 * i))) - 1 for i in range(kw)]
+    keep = torch.from_numpy(np.array(keep, np.uint64).astype(np.uint32).view(np.int32))
+    return x & keep, w & keep
+
+
+# M from 1 to the decode route's threshold takes the stream kernel when Kw
+# is a multiple of 4; one row more, or a ragged Kw, takes the tiled one.
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 12, bnn_matmul.STREAM_MAX_M, bnn_matmul.STREAM_MAX_M + 1])
+@pytest.mark.parametrize("kw,k_bits,n", [(96, 3072, 3072), (256, 8192, 3000), (99, 3163, 301),
+                                          (96, 3000, 1027), (8, 1, 77)])
+def test_bnn_matmul_packed_decode_route(cuda, m, kw, k_bits, n):
+    rng = np.random.default_rng(m * 1000 + kw)
+    x, w = _packed_operands(rng, m, n, kw, k_bits)
+    path = "stream" if m <= bnn_matmul.STREAM_MAX_M and kw % 4 == 0 else "tiled"
+    fn = bnn_matmul.bnn_matmul_packed
+    out = _launched(fn, path, lambda: fn(x.to(cuda), w.to(cuda), k_bits=k_bits))
+    assert torch.equal(out.cpu(), ref.bnn_matmul_packed_ref(x, w, k_bits))
+
+
+@pytest.mark.parametrize("which", ["x", "w", "both"])
+@pytest.mark.parametrize("words", [1, 2, 3])
+def test_bnn_matmul_packed_misaligned_views_take_tiled(cuda, which, words):
+    rng = np.random.default_rng(words)
+    x, w = _packed_operands(rng, 4, 500, 96, 3072)
+
+    def shifted(t):  # a contiguous view ``words`` int32 past a 16-byte boundary
+        buf = torch.zeros(t.numel() + 4, dtype=torch.int32, device=cuda)
+        out = buf[words:words + t.numel()].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 == 4 * words
+        return out
+
+    xc = shifted(x) if which in ("x", "both") else x.to(cuda)
+    wc = shifted(w) if which in ("w", "both") else w.to(cuda)
+    fn = bnn_matmul.bnn_matmul_packed
+    out = _launched(fn, "tiled", lambda: fn(xc, wc, k_bits=3072))
+    assert torch.equal(out.cpu(), ref.bnn_matmul_packed_ref(x, w, 3072))
+    # A row slice of aligned weights stays aligned (Kw = 96 words) and streams.
+    ws = w.to(cuda)[3:]
+    out = _launched(fn, "stream", lambda: fn(x.to(cuda), ws, k_bits=3072))
+    assert torch.equal(out.cpu(), ref.bnn_matmul_packed_ref(x, w[3:], 3072))
 
 
 def _launched(fn, path, call):

@@ -151,9 +151,11 @@ def test_optable_segmented_checks_runs():
         topt.optable_run(regs.to(torch.int64), *_tables(lp))
 
 
+# A full-height scratch (max_rows slots a packet): the block size that keeps
+# the most packets resident on an SM (192, 416 and 64 here).
 @pytest.mark.parametrize(
     "sizes,native,threads",
-    [((32, 64, 32), False, 128), ((32, 64, 32), True, 128), ((128, 64, 32, 2), False, 64)],
+    [((32, 64, 32), False, 64), ((32, 64, 32), True, 32), ((128, 64, 32, 2), False, 64)],
 )
 def test_block_threads_fit_shared_memory(sizes, native, threads):
     lp = _lowered(sizes, native)

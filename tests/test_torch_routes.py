@@ -1,5 +1,5 @@
 """Which kernel a CUDA launch takes: the route functions of the port's
-``flash_attention`` and ``bnn_matmul_mxu`` wrappers.
+``flash_attention``, ``bnn_matmul_mxu`` and ``bnn_matmul_packed`` wrappers.
 
 Each wrapper picks one C entry point by a pure function of dtype, shape and
 ``data_ptr`` (never by trying one kernel and catching its failure), so the
@@ -12,6 +12,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch.kernels import bnn_matmul as tpacked
 from repro_torch.kernels import bnn_matmul_mxu as tmxu
 from repro_torch.kernels import flash_attention as tflash
 
@@ -87,3 +88,47 @@ def test_cpu_calls_launch_nothing_and_counts_keep_every_route():
     fa(*_qkv(64))
     mxu(torch.zeros((3, 64), dtype=torch.bfloat16), torch.zeros((64, 72), dtype=torch.bfloat16))
     assert (fa.launches, fa.launches_by_route, mxu.launches, mxu.launches_by_route) == before
+
+
+def _words(m, kw):
+    return torch.zeros((m, kw), dtype=torch.int32)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 15, tpacked.STREAM_MAX_M])
+@pytest.mark.parametrize("kw", [4, 96, 256, 768])
+def test_packed_decode_sizes_take_stream(m, kw):
+    assert tpacked.route(_words(m, kw), _words(3072, kw)) == "stream"
+
+
+@pytest.mark.parametrize("m", [tpacked.STREAM_MAX_M + 1, 128, 2048])
+def test_packed_rows_above_the_threshold_take_tiled(m):
+    assert tpacked.route(_words(m, 96), _words(3072, 96)) == "tiled"
+
+
+@pytest.mark.parametrize("kw", [1, 3, 97, 258])
+def test_packed_kw_not_a_multiple_of_4_takes_tiled(kw):
+    assert tpacked.route(_words(4, kw), _words(300, kw)) == "tiled"
+
+
+def test_packed_x_too_large_for_shared_memory_takes_tiled():
+    kw = 48 * 1024 // (4 * tpacked.STREAM_MAX_M)
+    assert tpacked.route(_words(tpacked.STREAM_MAX_M, kw), _words(8, kw)) == "stream"
+    assert tpacked.route(_words(tpacked.STREAM_MAX_M, kw + 4), _words(8, kw + 4)) == "tiled"
+
+
+@pytest.mark.parametrize("which", ["x", "w"])
+@pytest.mark.parametrize("nbytes", [4, 8, 12])
+def test_packed_misaligned_operand_takes_tiled(which, nbytes):
+    x = _offset((4, 96), torch.int32, nbytes) if which == "x" else _words(4, 96)
+    w = _offset((300, 96), torch.int32, nbytes) if which == "w" else _words(300, 96)
+    assert tpacked.route(x, w) == "tiled"
+
+
+def test_packed_cpu_calls_launch_nothing():
+    fn = tpacked.bnn_matmul_packed
+    assert set(fn.launches_by_route) == {"stream", "tiled"}
+    before = (fn.launches, dict(fn.launches_by_route))
+    for m in (4, 100):
+        out = fn(_words(m, 96), _words(300, 96), k_bits=3000)
+        assert out.shape == (m, 300) and out.device.type == "cpu"
+    assert (fn.launches, fn.launches_by_route) == before
