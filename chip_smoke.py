@@ -8,15 +8,24 @@ What it does, in order:
    the card, bit for bit (``torch.equal``), at the shapes the main path gives
    it: ``optable_run`` on the headline model's tables for the default and the
    native-popcount chip (all six opcodes) and on FIVE_TUPLE's (the largest
-   register file), each timed; ``pack_bits_words`` and ``bitpack`` at
-   ragged widths;
-   ``packed_layer`` including pad neurons.  Each kernel and its plain version
-   are timed with CUDA events;
+   register file), each timed; ``pack_bits_words`` and ``bitpack`` on both
+   routes (``vec`` and ``scalar``: ragged widths, misaligned views), float32
+   and bf16 with planted subnormal signs, bf16 at the LM's decode and
+   scoring shapes; ``packed_layer`` on both routes (``quad`` and
+   ``general``) on the headline model's and FIVE_TUPLE's layers and their
+   scan plans' pad neurons.  Each launch asserts its route.  The two kernels
+   are timed per chunk as the device time of a replayed CUDA graph of 16
+   chunks, the new route in turns with the first design (``scalar``,
+   ``general``) and with one packet (the launches' fixed cost), and back to
+   back with events; bf16 ``bitpack`` as a graph of one decode layer's seven
+   launches (in turns with the float32 cast and launch it replaced) and at
+   the scoring shapes, over inputs larger than the L2 cache;
 4. drives the main path: the headline model (``BnnSpec((32, 64, 32))``,
    weights from a fixed seed) streams 2**20 ``ddos_burst`` packets at chunk
    32768 through ``execute_stream`` with the op-table backend and with the
    packed backend.  The launch count of every kernel is zeroed just before
-   and read just after each run.  The two outputs must agree on every
+   and read just after each run; the packed backend's launches must all take
+   the ``vec`` and ``quad`` routes.  The two outputs must agree on every
    packet, and on the first chunk with the port's interpreter and the BNN
    oracle;
 5. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
@@ -28,7 +37,8 @@ What it does, in order:
       ``torch.matmul`` of pre-signed bf16 operands, and both routes at M of
       1 to 16),
       ``bnn_matmul_mxu`` (bit for bit, on its tma route at the model's shape
-      and a ragged one, and on its staged route) and ``flash_attention``
+      and a ragged one, and on its staged route, each sign site also on
+      planted subnormal signs) and ``flash_attention``
       (within 3e-2 in bf16 on its tma and wmma routes, 2e-3 in float32)
       against their plain versions, each case asserting the route its
       launch took; each kernel is timed beside its plain version and, in
@@ -38,8 +48,8 @@ What it does, in order:
       kernel implementations at a prefill-sized activation;
    c. serves 8 requests through the ``Engine`` (all 32 layers, bf16, packed
       XNOR-popcount projections) and checks that every packed projection
-      went through ``bitpack`` and ``bnn_matmul_packed``, every decode-step
-      launch on its stream route;
+      went through ``bitpack`` (bf16 input, vec route) and
+      ``bnn_matmul_packed``, every decode-step launch on its stream route;
    d. scores one 2048-token sequence with ``forward`` under
       ``attn_impl="pallas_flash"`` (one ``flash_attention`` launch per
       layer, every one on the tma route), and holds a 2-layer float32
@@ -68,7 +78,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs.n2net_paper import FIVE_TUPLE, HEADLINE  # noqa: E402
-from repro_torch.core import bnn, compiler, interpreter  # noqa: E402
+from repro_torch.core import bitops, bnn, compiler, interpreter  # noqa: E402
 from repro_torch.core.pipeline import RMT, RMT_NATIVE_POPCNT  # noqa: E402
 from repro_torch.dataplane import executor, lowering, traffic  # noqa: E402
 from repro_torch.kernels import _build, bitpack, optable_exec, packed_layer  # noqa: E402
@@ -80,6 +90,10 @@ from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
 PACKETS = 1 << 20
 CHUNK = 1 << 15
+# Chunks of a packet-path kernel's launches in one timed CUDA graph: a chunk
+# takes microseconds on the device, less than the host needs to replay a
+# graph, so a graph of one chunk would time the host.
+CHUNK_REPS = 16
 SEED = 0
 SCENARIO = "ddos_burst"
 
@@ -199,68 +213,219 @@ def check_optable(dev, programs: dict) -> dict:
     )
 
 
+# Subnormals of both signs, the boundary -FLT_MIN (a normal number), ±0.0, NaN
+# and ±inf.  The reference computes its signs with subnormals flushed to zero,
+# so a negative subnormal has sign bit 1 (core/bitops.py::sign_bit).
+FLT_MIN = 2.0 ** -126
+PLANTED = [-1e-40, 1e-40, -1e-45, -FLT_MIN / 2, -FLT_MIN, -0.0, 0.0, float("nan"),
+           float("-inf"), float("inf")]
+PLANTED_BITS = [1, 1, 1, 1, 0, 1, 1, 0, 0, 1]
+
+
+def planted(shape, dtype, gen, dev) -> torch.Tensor:
+    """Normal data with PLANTED in row 0 from column 3 and -1e-39 in every
+    third column of the last row."""
+    x = torch.randn(shape, generator=gen)
+    x[0, 3:3 + len(PLANTED)] = torch.tensor(PLANTED)
+    x[-1, ::3] = -1e-39
+    return x.to(dev, dtype)
+
+
+def shifted(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts ``nbytes`` past a 16-byte
+    boundary (a misaligned view)."""
+    itemsize = t.element_size()
+    buf = torch.zeros(t.numel() + 32 // itemsize, dtype=t.dtype, device=t.device)
+    skip = ((16 - buf.data_ptr() % 16) % 16 + nbytes) // itemsize
+    out = buf[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def check_bitpack(dev, layer_inputs) -> dict:
-    """``pack_bits_words`` (and ``bitpack``) against the plain packer at
-    ragged widths and at the main path's per-layer inputs; timed per chunk
-    (one launch per layer)."""
+    """``pack_bits_words`` and ``bitpack`` against the plain packer on both
+    routes: ragged widths (scalar), whole 16-byte vectors (vec), misaligned
+    views (scalar), float32 and bf16 with planted subnormal signs, bf16 at
+    the LM's decode (M = 4) and scoring (M = 2048) shapes, and the main
+    path's per-layer inputs.
+
+    Timed per chunk (the main path's two launches) as the device time of a
+    replayed CUDA graph of CHUNK_REPS chunks, the vec route in turns with the
+    scalar route (the first design: a warp per word) and with one packet,
+    and back to back with events (the wrapper's host time included).  bf16
+    ``bitpack`` is timed the same way at one decode layer's seven launches (in turns with
+    the float32 cast and launch it replaced) and at the scoring shapes."""
+    pbw, bp = bitpack.pack_bits_words, bitpack.bitpack
     err = 0
     gen = torch.Generator().manual_seed(SEED)
     for n in (1, 31, 33, 100, 2048):
         bits = torch.randint(0, 2, (4099, n), generator=gen, dtype=torch.int32).to(dev)
-        err = max(err, same(f"pack_bits_words (4099, {n})", bitpack.pack_bits_words(bits),
+        path = "vec" if n % 4 == 0 else "scalar"
+        err = max(err, same(f"pack_bits_words (4099, {n}) ({path})", routed(pbw, path, lambda: pbw(bits)),
                             bitpack.pack_ge_plain(bits, 1)))
-    x = torch.randn((4099, 256), generator=gen).to(dev)
-    err = max(err, same("bitpack float32 (4099, 256)", bitpack.bitpack(x), bitpack.pack_ge_plain(x, 0)))
-    ms = plain = nbytes = ops = 0.0
+        err = max(err, same(f"pack_bits_words (4099, {n}) misaligned by 4 bytes (scalar)",
+                            routed(pbw, "scalar", lambda: pbw(shifted(bits, 4))),
+                            bitpack.pack_ge_plain(bits, 1)))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = planted((4099, 256), dtype, gen, dev)
+        want = bitpack.pack_ge_plain(x, 0)
+        head = bitops.unpack_bits(bitops.i32_to_u32(want[:1].cpu()))[0, 3:3 + len(PLANTED)]
+        if head.tolist() != PLANTED_BITS:
+            raise AssertionError(f"plain sign bits of the planted values: {head.tolist()}")
+        for path, xv in (("vec", x), ("scalar", shifted(x, 8))):
+            err = max(err, same(f"bitpack {dtype} (4099, 256) with subnormal signs ({path})",
+                                routed(bp, path, lambda: bp(xv)), want))
+    for m, k in ((DECODE_M, 3072), (DECODE_M, 8192), (2048, 3072), (2048, 8192)):
+        x = planted((m, k), torch.bfloat16, gen, dev)
+        err = max(err, same(f"bitpack bf16 ({m}, {k}) (vec)", routed(bp, "vec", lambda: bp(x)),
+                            bitpack.pack_ge_plain(x, 0)))
+    plain = nbytes = ops = 0.0
     for h in layer_inputs:
-        err = max(err, same(f"pack_bits_words {tuple(h.shape)}", bitpack.pack_bits_words(h),
+        err = max(err, same(f"pack_bits_words {tuple(h.shape)} (vec)", routed(pbw, "vec", lambda: pbw(h)),
                             bitpack.pack_ge_plain(h, 1)))
         m, n = h.shape
-        ms += time_ms(bitpack.pack_bits_words, h)
         plain += time_ms(bitpack.pack_ge_plain, h, 1, iters=5)
         nbytes += m * n * 4 + m * bitpack.num_words(n) * 4
         ops += m * n
     b_ms, b_by = bound_ms(nbytes, ops)
+    back_to_back = sum(time_ms(pbw, h) for h in layer_inputs)
+
+    def chunk(path, rows=CHUNK):
+        hs = [h[:rows] for h in layer_inputs]
+        outs = [torch.empty((rows, bitpack.num_words(h.shape[1])), dtype=torch.int32, device=dev) for h in hs]
+        return lambda: [bitpack._launch(h, out, 1, path, pbw) for h, out in zip(hs, outs)]
+
+    # CHUNK_REPS chunks a graph; the same launches on one packet give their
+    # fixed cost in a graph.
+    per_chunk = graphs_in_turns({name: repeated(call, CHUNK_REPS) for name, call in (
+        ("vec", chunk("vec")), ("scalar", chunk("scalar")), ("vec, 1 packet", chunk("vec", 1)))})
+    per_chunk = {name: v / CHUNK_REPS for name, v in per_chunk.items()}
+    print(f"  pack_bits_words per chunk of {CHUNK} (2 launches): graph replay vec {per_chunk['vec']} ms, "
+          f"scalar {per_chunk['scalar']} ms (one packet: {per_chunk['vec, 1 packet']} ms); back to back "
+          f"(events) {back_to_back} ms; bound {b_ms} ms ({b_by})")
+
+    # bf16 bitpack: one decode layer's seven activations (K = 3072 six
+    # times, 8192 once) over GRAPH_LAYERS layers, and the scoring shapes.
+    ks = [3072] * 6 + [8192]
+    xs = [[torch.randn((DECODE_M, k), generator=gen).to(dev, torch.bfloat16) for k in ks]
+          for _ in range(GRAPH_LAYERS)]
+    outs = [[torch.empty((DECODE_M, k // 32), dtype=torch.int32, device=dev) for k in ks]
+            for _ in range(GRAPH_LAYERS)]
+    flat = [(x, o) for lx, lo in zip(xs, outs) for x, o in zip(lx, lo)]
+    t = graphs_in_turns({
+        "bf16 vec": lambda: [bitpack._launch(x, o, 0, "vec", bp) for x, o in flat],
+        "bf16 scalar": lambda: [bitpack._launch(x, o, 0, "scalar", bp) for x, o in flat],
+        "cast + float32 vec": lambda: [bitpack._launch(x.float(), o, 0, "vec", bp) for x, o in flat],
+    })
+    decode_bytes = sum(DECODE_M * k * 2 + DECODE_M * k // 8 for k in ks)
+    print(f"  bitpack bf16 per decode layer (7 launches, M={DECODE_M}), graph replay: "
+          + ", ".join(f"{name} {v / GRAPH_LAYERS} ms" for name, v in t.items())
+          + f"; bound {bound_ms(decode_bytes, sum(DECODE_M * k for k in ks))[0]} ms")
+    # Scoring shapes: distinct inputs, 100 MB or more a graph (twice the L2),
+    # so each launch reads from device memory.
+    for k in (3072, 8192):
+        copies = -(-100_000_000 // (2048 * k * 2))
+        xs = [torch.randn((2048, k), generator=gen).to(dev, torch.bfloat16) for _ in range(copies)]
+        outs = [torch.empty((2048, k // 32), dtype=torch.int32, device=dev) for _ in range(copies)]
+        t = graphs_in_turns({path: (lambda path=path: [bitpack._launch(x, o, 0, path, bp)
+                                                       for x, o in zip(xs, outs)])
+                             for path in ("vec", "scalar")})
+        t = {path: v / copies for path, v in t.items()}
+        sb_ms, sb_by = bound_ms(2048 * k * 2 + 2048 * k // 8, 2048 * k)
+        print(f"  bitpack bf16 (2048, {k}), graph replay over {copies} inputs, per launch: vec {t['vec']} ms "
+              f"({t['vec'] / sb_ms} x bound), scalar {t['scalar']} ms; bound {sb_ms} ms ({sb_by})")
+        del xs, outs
     return dict(
         source="src/repro_torch/csrc/bitpack.cu",
         replaces="src/repro/kernels/bitpack.py:35",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=err, ms=per_chunk["vec"], old_route_ms=per_chunk["scalar"],
+        back_to_back_ms=back_to_back, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
     )
 
 
-def check_packed_layer(dev, lp, layer_inputs) -> dict:
+def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
     """``packed_layer`` against its plain version on the main path's layers
-    and on the scan plan's padded layer (pad neurons must never fire); timed
-    per chunk (one launch per layer)."""
+    (quad route), the scan plan's padded layers (pad neurons must never
+    fire), FIVE_TUPLE's layers (4, 2 and 1 words; its 2-neuron output layer
+    takes the general route) and its scan plan, and every main-path layer on
+    the general route.
+
+    Timed per chunk (the main path's two launches) as the device time of a
+    replayed CUDA graph of CHUNK_REPS chunks, the quad route in turns with the
+    general route (the first design: a thread per output) and with one
+    packet, and back to back with events."""
+    fn = packed_layer.packed_layer
 
     def operands(weights, mask, thresholds, h):
         return (bitpack.pack_bits_words(h), executor._i32(weights).to(dev),
                 executor._i32(mask).to(dev), executor._i32(thresholds).to(dev))
 
     err = 0
-    ms = plain = nbytes = ops = 0.0
+    plain = nbytes = ops = back_to_back = 0.0
+    chunk_args = []
     for pl, h in zip(lp.packed.layers, layer_inputs):
         args = operands(pl.weights, pl.mask, pl.thresholds, h)
-        err = max(err, same(f"packed_layer {pl.n_in}->{pl.n_out} ({CHUNK} packets)",
-                            packed_layer.packed_layer(*args), packed_layer.packed_layer_plain(*args)))
+        want = packed_layer.packed_layer_plain(*args)
+        for path in ("quad", "general"):
+            out = torch.empty_like(want)
+            err = max(err, same(f"packed_layer {pl.n_in}->{pl.n_out} ({CHUNK} packets, {path})",
+                                routed(fn, path, lambda: packed_layer._launch(*args, out, path)), want))
+        routed(fn, "quad", lambda: fn(*args))
         (b, w), n_out = args[0].shape, pl.n_out
-        ms += time_ms(packed_layer.packed_layer, *args)
+        back_to_back += time_ms(fn, *args)
         plain += time_ms(packed_layer.packed_layer_plain, *args, iters=5)
         nbytes += (b * w + 2 * n_out * w + n_out + b * n_out) * 4
         ops += b * n_out * (5 * w + 1)  # xor, not, and, popc, add per word; compare
-    sp = lowering.stack_packed_layers(lp.packed)
-    n_true = lp.packed.layers[1].n_out
-    args = operands(sp.weights[1], sp.mask[1], sp.thresholds[1], layer_inputs[1])
-    out = packed_layer.packed_layer(*args)
-    err = max(err, same(f"packed_layer stacked layer 1 with {sp.max_out - n_true} pad neurons",
-                        out, packed_layer.packed_layer_plain(*args)))
-    if out[:, n_true:].any():
-        raise AssertionError("a pad neuron (threshold 0xFFFFFFFF) fired")
+        chunk_args.append((args, torch.empty_like(want)))
     b_ms, b_by = bound_ms(nbytes, ops)
+
+    def stacked(lowered, h, label):
+        nonlocal err
+        sp = lowering.stack_packed_layers(lowered.packed)
+        h = torch.nn.functional.pad(h, (0, sp.max_bits - h.shape[1]))
+        for li, pl in enumerate(lowered.packed.layers):
+            args = (bitpack.pack_bits_words(h)[:, :sp.max_words].contiguous(),
+                    executor._i32(sp.weights[li]).to(dev), executor._i32(sp.mask[li]).to(dev),
+                    executor._i32(sp.thresholds[li]).to(dev))
+            out = routed(fn, packed_layer.route(*args[:2]), lambda: fn(*args))
+            err = max(err, same(f"packed_layer {label} stacked layer {li} with {sp.max_out - pl.n_out} "
+                                f"pad neurons ({packed_layer.route(*args[:2])})",
+                                out, packed_layer.packed_layer_plain(*args)))
+            if out[:, pl.n_out:].any():
+                raise AssertionError(f"{label}: a pad neuron (threshold 0xFFFFFFFF) fired")
+            h = torch.nn.functional.pad(out, (0, sp.max_bits - out.shape[1]))
+
+    stacked(lp, layer_inputs[0], "HEADLINE")
+    five_lp, five_packets = five
+    h = five_packets
+    for pl in five_lp.packed.layers:
+        args = operands(pl.weights, pl.mask, pl.thresholds, h)
+        path = packed_layer.route(*args[:2])
+        want = "quad" if pl.n_out % 4 == 0 else "general"
+        if path != want:
+            raise AssertionError(f"FIVE_TUPLE layer {pl.n_in}->{pl.n_out} routes to {path}, not {want}")
+        h = routed(fn, path, lambda: fn(*args))
+        err = max(err, same(f"packed_layer FIVE_TUPLE {pl.n_in}->{pl.n_out} ({pl.n_words} words, {path})",
+                            h, packed_layer.packed_layer_plain(*args)))
+    stacked(five_lp, five_packets, "FIVE_TUPLE")
+
+    def chunk(path, rows=CHUNK):
+        cut = [((args[0][:rows], *args[1:]), out[:rows]) for args, out in chunk_args]
+        return lambda: [packed_layer._launch(*args, out, path) for args, out in cut]
+
+    # CHUNK_REPS chunks a graph; the same launches on one packet give their
+    # fixed cost in a graph.
+    t = graphs_in_turns({name: repeated(call, CHUNK_REPS) for name, call in (
+        ("quad", chunk("quad")), ("general", chunk("general")), ("quad, 1 packet", chunk("quad", 1)))})
+    t = {name: v / CHUNK_REPS for name, v in t.items()}
+    print(f"  packed_layer per chunk of {CHUNK} (2 launches): graph replay quad {t['quad']} ms, "
+          f"general {t['general']} ms (one packet: {t['quad, 1 packet']} ms); back to back (events) "
+          f"{back_to_back} ms; bound {b_ms} ms ({b_by})")
     return dict(
         source="src/repro_torch/csrc/packed_layer.cu",
         replaces="src/repro/dataplane/executor.py:213",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=err, ms=t["quad"], old_route_ms=t["general"], back_to_back_ms=back_to_back,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
     )
 
 
@@ -273,10 +438,11 @@ def drive_main_path(dev, lp, records: dict) -> dict:
         "packed_layer": packed_layer.packed_layer,
     }
     path_kernels = {"jnp": ("optable_run",), "packed": ("pack_bits_words", "packed_layer")}
+    # The packed backend's launches on HEADLINE all take the new routes.
+    path_routes = {"pack_bits_words": "vec", "packed_layer": "quad"}
     results = {}
     for backend, label in (("jnp", "op-table"), ("packed", "packed")):
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts()
         sr = executor.execute_stream(
             lp,
             traffic.stream(SCENARIO, PACKETS, HEADLINE.input_bits, chunk_size=CHUNK, seed=SEED),
@@ -287,6 +453,10 @@ def drive_main_path(dev, lp, records: dict) -> dict:
             if launches[name] <= 0:
                 raise AssertionError(f"the {label} backend never launched {name}")
             records[name]["launches"] = launches[name]
+            by_route = counters[name].launches_by_route if name in path_routes else {}
+            if by_route and by_route[path_routes[name]] != launches[name]:
+                raise AssertionError(f"{name} launches by route {by_route}, expected all on "
+                                     f"{path_routes[name]}")
         results[backend] = sr
         print(
             f"main path, {label} backend: {sr.packets} packets in {sr.chunks} chunks, "
@@ -313,8 +483,9 @@ COUNTED = {
 def zero_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
-        for path in getattr(fn, "launches_by_route", {}):
-            fn.launches_by_route[path] = 0
+        for by in ("launches_by_route", "launches_by_dtype"):
+            for key in getattr(fn, by, {}):
+                getattr(fn, by)[key] = 0
 
 
 def read_counts() -> dict:
@@ -361,6 +532,12 @@ def graph_of(fn):
     with torch.cuda.graph(g):
         fn()
     return g
+
+
+def repeated(fn, reps: int):
+    """``fn()`` ``reps`` times in one call: a graph of it holds enough work
+    that the device, not the host's replay call, sets its time."""
+    return lambda: [fn() for _ in range(reps)]
 
 
 def graphs_in_turns(fns: dict, iters: int = 20) -> dict:
@@ -483,6 +660,15 @@ def check_bnn_matmul_mxu(dev, cfg, gen) -> dict:
     wr = ref.sign(torch.randn((513, 300), generator=gen, device=dev), torch.bfloat16)
     err = max(err, same("bnn_matmul_mxu 1000x513x300 f32 (staged)",
                         routed(mxu, "staged", lambda: mxu(xr, wr)), plain(xr, wr)))
+    # Each sign site (the tma route's bf16x2 compare, the staged route's bf16
+    # and float32 staging) on planted subnormal signs.
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    for dtype, kk, path in ((torch.bfloat16, 520, "tma"), (torch.bfloat16, 513, "staged"),
+                            (torch.float32, 520, "staged")):
+        xp = planted((1000, kk), dtype, cpu_gen, dev)
+        wp = ref.sign(torch.randn((kk, 264), generator=gen, device=dev), torch.bfloat16)
+        err = max(err, same(f"bnn_matmul_mxu 1000x{kk}x264 {dtype} with subnormal signs ({path})",
+                            routed(mxu, path, lambda: mxu(xp, wp)), plain(xp, wp)))
     xs = ref.sign(x, torch.bfloat16)
     b_ms, b_by = bound_ms((m * k + k * n) * 2 + m * n * 4, 2 * m * n * k, BF16_TENSOR_FLOPS)
     ms, lib_ms = time_in_turns(lambda: mxu(x, w), lambda: torch.matmul(xs, w))
@@ -585,12 +771,19 @@ def drive_serving(dev, cfg, params) -> dict:
     want = {"stream": per_call * (eng.decode_steps + short), "tiled": per_call * (LM_REQUESTS - short)}
     if by_route != want:
         raise AssertionError(f"bnn_matmul_packed launches by route {by_route}, expected {want}")
+    # Every bitpack launch, decode steps included, takes the bf16 activation
+    # as it comes (no cast to float32) on the vec route.
+    pack = bitpack.bitpack
+    total = per_call * calls
+    if pack.launches_by_dtype["bfloat16"] != total or pack.launches_by_route["vec"] != total:
+        raise AssertionError(f"bitpack launches by type {pack.launches_by_dtype}, by route "
+                             f"{pack.launches_by_route}: expected all {total} bf16 on the vec route")
     print(f"serving path ({LM_ARCH}, {cfg.num_layers} layers, bf16, bnn_packed): "
           f"{LM_REQUESTS} requests, wall {wall} s; prefill {eng.prefill_seconds} s for "
           f"{LM_REQUESTS} prompts; decode {eng.decode_seconds} s for {eng.decode_steps} steps "
           f"({eng.decode_seconds / eng.decode_steps * 1e3} ms/step), {eng.decode_tokens} tokens "
           f"-> {eng.decode_tokens / eng.decode_seconds} decode tokens/s; launches {launches}; "
-          f"bnn_matmul_packed by route {by_route}")
+          f"bnn_matmul_packed by route {by_route}; bitpack by type {pack.launches_by_dtype}")
     print(f"  sample: request 0 -> {done[0].output[:8]}...")
     return launches
 
@@ -655,7 +848,7 @@ def main() -> int:
     records = {
         "optable_run": check_optable(dev, programs),
         "pack_bits_words": check_bitpack(dev, layer_inputs),
-        "packed_layer": check_packed_layer(dev, lp, layer_inputs),
+        "packed_layer": check_packed_layer(dev, lp, layer_inputs, programs["FIVE_TUPLE/rmt"]),
     }
     unrolled = executor.execute(lp, first, backend="packed", device=dev)
     if not np.array_equal(executor.execute(lp, first, backend="packed", scan_hops=True, device=dev), unrolled):
@@ -698,7 +891,8 @@ def main() -> int:
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-             library_ms=r.get("library_ms"))
+             library_ms=r.get("library_ms"),
+             **{key: r[key] for key in ("old_route_ms", "back_to_back_ms") if key in r})
         for name, r in records.items()
     ]
     print(json.dumps({"kernels": kernels}))

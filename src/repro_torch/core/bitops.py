@@ -27,6 +27,9 @@ import torch
 
 WORD = 32  # packing word width (uint32)
 MASK32 = 0xFFFFFFFF
+# The least positive normal float32, 2**-126.  bf16 has float32's exponent
+# range and represents it exactly.
+FLT_MIN = 2.0 ** -126
 
 # HAKMEM / Hacker's-Delight tree-popcount masks, per level.
 _POPCOUNT_MASKS = (0x55555555, 0x33333333, 0x0F0F0F0F, 0x00FF00FF, 0x0000FFFF)
@@ -132,9 +135,27 @@ def pad_to_word_multiple(
     return torch.cat([bits, pad], dim=axis)
 
 
+def sign_bit(x: torch.Tensor) -> torch.Tensor:
+    """The sign bit the reference gives ``x``: True where ``x >= 0``.
+
+    The reference's signs are computed with subnormals flushed to zero (XLA's
+    CPU backend and the TPU), so a negative subnormal counts as -0.0 and gets
+    a True bit; PyTorch keeps subnormals.  For floating ``x`` the reference's
+    bit is therefore ``x > -FLT_MIN``, which reads the value and not the
+    floating-point mode: -0.0 gives True, NaN False.  Integer ``x`` is
+    ``x >= 0``.
+    """
+    if not x.is_floating_point():
+        return x >= 0
+    if x.dtype == torch.float16:  # -FLT_MIN would round to -0.0 in half
+        x = x.float()
+    return x > -FLT_MIN
+
+
 def sign_to_bits(x: torch.Tensor) -> torch.Tensor:
-    """Map a ±1 (or real) tensor to {0,1} int32 bits: bit = 1 iff x >= 0."""
-    return (x >= 0).to(torch.int32)
+    """Map a ±1 (or real) tensor to {0,1} int32 bits: bit = 1 iff x >= 0
+    (:func:`sign_bit`)."""
+    return sign_bit(x).to(torch.int32)
 
 
 def bits_to_sign(b: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

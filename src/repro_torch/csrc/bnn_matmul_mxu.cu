@@ -6,8 +6,10 @@
 // What it computes: out (M, N) float32 = binarize(x) @ w, with x (M, K)
 // float32 or bf16 and w (K, N) bf16 (pre-binarized ±1 weights), accumulated
 // in float32.  binarize(x) is +1 where x >= 0 (so -0.0 gives +1) and -1
-// elsewhere (so NaN gives -1), as jnp.where(x >= 0, 1, -1); with
-// binarize_x = 0, x is rounded to bf16 (round to nearest even) instead.
+// elsewhere (so NaN gives -1), as jnp.where(x >= 0, 1, -1) computes it with
+// subnormals flushed to zero: a negative subnormal gives +1 (sign_bit in
+// common.cuh); with binarize_x = 0, x is rounded to bf16 (round to nearest
+// even) instead.
 // With ±1 operands every partial sum is an integer below 2^24, so the result
 // is exact whatever the order of the sums.
 //
@@ -58,12 +60,15 @@ constexpr int kLdA = kBK + 8;  // bf16 row strides: multiples of 8 elements,
 constexpr int kLdB = kBN + 8;  // fragment rows 32-byte aligned
 constexpr int kLdC = kBN + 4;  // float stride: a multiple of 4
 
+// sign_bit, not v >= 0: the reference's signs are computed with subnormals
+// flushed to zero (XLA's CPU backend and the TPU), so a negative subnormal
+// binarizes to +1.
 __device__ __forceinline__ __nv_bfloat16 to_operand(float v, bool binarize) {
-  if (binarize) return __float2bfloat16_rn(v >= 0.f ? 1.f : -1.f);
+  if (binarize) return __float2bfloat16_rn(sign_bit(v) ? 1.f : -1.f);
   return __float2bfloat16_rn(v);
 }
 __device__ __forceinline__ __nv_bfloat16 to_operand(__nv_bfloat16 v, bool binarize) {
-  if (binarize) return __float2bfloat16_rn(__bfloat162float(v) >= 0.f ? 1.f : -1.f);
+  if (binarize) return __float2bfloat16_rn(sign_bit(__bfloat162float(v)) ? 1.f : -1.f);
   return v;
 }
 
@@ -153,11 +158,13 @@ constexpr size_t kTSharedBytes = static_cast<size_t>(kTStages) * kStageBytes +
                                  2 * kTStages * sizeof(uint64_t) + 1024;  // + alignment slack
 
 // +1 where a bf16 x >= 0, -1 elsewhere, for both halves of a word: one
-// bf16x2 compare (1.0 where x >= 0, so -0.0 gives +1; 0.0 where x < 0 or x
-// is NaN) and one bf16x2 FMA, 2 * ge - 1, exact.
+// bf16x2 compare (sign_bits_bf16x2: 1.0 where x > -FLT_MIN, so -0.0 and a
+// negative subnormal give +1, as the reference's signs computed with
+// subnormals flushed to zero do; 0.0 where x <= -FLT_MIN or x is NaN) and
+// one bf16x2 FMA, 2 * ge - 1, exact.
 __device__ __forceinline__ uint32_t sign_bf16x2(uint32_t w) {
   const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w);
-  const __nv_bfloat162 ge = __hge2(x, __float2bfloat162_rn(0.f));
+  const __nv_bfloat162 ge = sign_bits_bf16x2(x);
   const __nv_bfloat162 r = __hfma2(ge, __float2bfloat162_rn(2.f), __float2bfloat162_rn(-1.f));
   return *reinterpret_cast<const uint32_t*>(&r);
 }

@@ -3,9 +3,11 @@
 // so each gets its own copy of what is defined here.
 #pragma once
 
+#include <cfloat>
 #include <cstdint>
 #include <cstdio>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // Shared memory one block may use on Hopper (227 KB of the SM's 256 KB).
@@ -37,4 +39,20 @@ inline int allow_shared_bytes(Kernel kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));
+}
+
+// The sign bit the reference gives a float: 1 where x >= 0.  The reference's
+// signs are computed with subnormals flushed to zero (XLA's CPU backend and
+// the TPU), so a negative subnormal counts as -0.0 and gets a 1.  The rule
+// that matches is x > -FLT_MIN: -0.0 gives 1, NaN gives 0, and it reads the
+// value, not the floating-point mode, so it holds whether or not a compare
+// flushes subnormals (the port builds without -ftz).  repro_torch's
+// core/bitops.py::sign_bit is the same rule in PyTorch.
+__device__ __forceinline__ bool sign_bit(float x) { return x > -FLT_MIN; }
+
+// The same rule on both halves of a bf16 pair: 1.0 where the half's sign bit
+// is 1, else 0.0.  bf16 has float32's exponent range, so it holds
+// subnormals too, and -FLT_MIN (-2^-126) is exact in bf16.
+__device__ __forceinline__ __nv_bfloat162 sign_bits_bf16x2(__nv_bfloat162 x) {
+  return __hgt2(x, __float2bfloat162_rn(-FLT_MIN));
 }

@@ -13,73 +13,158 @@
 // reach, so they never fire (read as a signed int32 that threshold is -1,
 // which is why the compare is unsigned).
 //
-// What bounds it on this card: device-memory bytes.  Each (packet, neuron)
-// pair writes a 4-byte output for a few integer operations per word, and a
-// layer's weights, masks and thresholds are a few hundred bytes.
+// What bounds it on this card: device-memory bytes, almost all of them
+// stores.  Each (packet, neuron) pair writes a 4-byte output for a few
+// integer operations per word, and a layer's weights, masks and thresholds
+// are a few hundred bytes (the headline model writes 12.6 MB a chunk of
+// 32768 packets and reads under 0.4 MB).
 //
-// Design: one thread per (packet, neuron), neurons fastest, so a warp's
-// output stores are contiguous.  Each block stages the layer's weights,
-// masks and thresholds in shared memory once and then strides over the
-// grid, so the staging is paid once per block, not per output.  Threads of
-// one packet read the same input words: a broadcast from L1.
+// Design: two kernels, one entry point each; the wrapper
+// (kernels/packed_layer.py::route) picks one by what it can see.
+//
+// * quad (n_out a multiple of 4, at most 1024; NW = n_words of 1, 2 or 4,
+//   a template parameter; words aligned to NW words).  Each thread owns 4
+//   consecutive neurons and holds their weight, mask and threshold words in
+//   registers, loaded once.  It then walks packets with a block stride: it
+//   reads a packet's NW words in one load, computes four counts and writes
+//   them as one 16-byte int4.  A block is a whole number of packets' worth of
+//   threads, neurons fastest, so the threads of one packet write neighbouring
+//   16-byte chunks and a block's stores cover one contiguous span.
+// * general (any other layer: a ragged n_out such as FIVE_TUPLE's 2-neuron
+//   output, more words, or a misaligned view).  One thread per (packet,
+//   neuron), neurons fastest; each block stages the layer's weights, masks
+//   and thresholds in shared memory once, then strides over the outputs.
+//
+// Both index with 32-bit integers (the wrapper keeps every index below 2^31).
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 16;
-constexpr int kSms = 132;
+constexpr unsigned kMaxBlocks = 132 * 8;  // 8 blocks of 256 fill an SM's 2048 threads
 
-__global__ void packed_layer_kernel(
-    const uint32_t* __restrict__ words, const uint32_t* __restrict__ weights,
-    const uint32_t* __restrict__ mask, const uint32_t* __restrict__ thr,
-    int* __restrict__ out, long long batch, int n_out, int n_words) {
+template <int NW>
+__device__ __forceinline__ void load_words(uint32_t (&x)[NW], const uint32_t* p) {
+  if constexpr (NW == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (NW == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ int fires(const uint32_t (&x)[NW], const uint32_t (&w)[NW],
+                                     const uint32_t (&mk)[NW], uint32_t thr) {
+  uint32_t count = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) count += static_cast<uint32_t>(__popc(~(x[k] ^ w[k]) & mk[k]));
+  return count >= thr ? 1 : 0;
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+packed_layer_quad_kernel(const uint32_t* __restrict__ words, const uint32_t* __restrict__ weights,
+                         const uint32_t* __restrict__ mask, const uint32_t* __restrict__ thr,
+                         int4* __restrict__ out, uint32_t batch, uint32_t quads) {
+  const uint32_t per_block = blockDim.x / quads;  // packets a block step covers
+  const uint32_t q = threadIdx.x % quads, p = threadIdx.x / quads;
+  uint32_t w[4][NW], mk[4][NW], th[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t neuron = 4 * q + j;
+    th[j] = __ldg(thr + neuron);
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      w[j][k] = __ldg(weights + neuron * NW + k);
+      mk[j][k] = __ldg(mask + neuron * NW + k);
+    }
+  }
+  for (uint32_t b = blockIdx.x * per_block + p; b < batch; b += gridDim.x * per_block) {
+    uint32_t x[NW];
+    load_words<NW>(x, words + b * NW);
+    out[b * quads + q] = make_int4(fires<NW>(x, w[0], mk[0], th[0]), fires<NW>(x, w[1], mk[1], th[1]),
+                                   fires<NW>(x, w[2], mk[2], th[2]), fires<NW>(x, w[3], mk[3], th[3]));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+packed_layer_general_kernel(const uint32_t* __restrict__ words, const uint32_t* __restrict__ weights,
+                            const uint32_t* __restrict__ mask, const uint32_t* __restrict__ thr,
+                            int* __restrict__ out, uint32_t batch, uint32_t n_out, uint32_t n_words) {
   extern __shared__ uint32_t smem[];
-  const int table = n_out * n_words;
+  const uint32_t table = n_out * n_words;
   uint32_t* sw = smem;
   uint32_t* sm = smem + table;
   uint32_t* st = smem + 2 * table;
-  for (int i = threadIdx.x; i < table; i += blockDim.x) {
+  for (uint32_t i = threadIdx.x; i < table; i += blockDim.x) {
     sw[i] = weights[i];
     sm[i] = mask[i];
   }
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) st[i] = thr[i];
+  for (uint32_t i = threadIdx.x; i < n_out; i += blockDim.x) st[i] = thr[i];
   __syncthreads();
 
-  const long long total = batch * n_out;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const long long b = idx / n_out;
-    const int j = static_cast<int>(idx % n_out);
+  const uint32_t total = batch * n_out;
+  for (uint32_t idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += gridDim.x * blockDim.x) {
+    const uint32_t b = idx / n_out;
+    const uint32_t j = idx - b * n_out;
     const uint32_t* x = words + b * n_words;
     const uint32_t* w = sw + j * n_words;
     const uint32_t* mk = sm + j * n_words;
     uint32_t count = 0;
-    for (int k = 0; k < n_words; ++k) {
+    for (uint32_t k = 0; k < n_words; ++k) {
       count += static_cast<uint32_t>(__popc(~(x[k] ^ w[k]) & mk[k]));
     }
     out[idx] = count >= st[j] ? 1 : 0;
   }
 }
 
+template <int NW>
+int launch_quad(const void* words, const void* weights, const void* mask, const void* thr,
+                void* out, uint32_t batch, uint32_t n_out, cudaStream_t stream) {
+  const uint32_t quads = n_out / 4;
+  const uint32_t per_block = kThreads / quads;
+  const uint32_t wanted = (batch + per_block - 1) / per_block;
+  const uint32_t blocks = wanted < kMaxBlocks ? wanted : kMaxBlocks;
+  packed_layer_quad_kernel<NW><<<blocks, per_block * quads, 0, stream>>>(
+      static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(weights),
+      static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(thr),
+      static_cast<int4*>(out), batch, quads);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-extern "C" int packed_layer(const void* words, const void* weights,
-                            const void* mask, const void* thr, void* out,
-                            long long batch, int n_out, int n_words,
-                            void* stream) {
+extern "C" int packed_layer_quad(const void* words, const void* weights, const void* mask,
+                                 const void* thr, void* out, int batch, int n_out, int n_words,
+                                 void* stream) {
+  if (n_out <= 0 || n_out % 4 || n_out > 4 * kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (n_words) {
+    case 1: return launch_quad<1>(words, weights, mask, thr, out, batch, n_out, s);
+    case 2: return launch_quad<2>(words, weights, mask, thr, out, batch, n_out, s);
+    case 4: return launch_quad<4>(words, weights, mask, thr, out, batch, n_out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int packed_layer_general(const void* words, const void* weights, const void* mask,
+                                    const void* thr, void* out, int batch, int n_out, int n_words,
+                                    void* stream) {
   const size_t smem =
       (2 * static_cast<size_t>(n_out) * n_words + n_out) * sizeof(uint32_t);
   if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = allow_shared_bytes(packed_layer_kernel, smem);
+  const int rc = allow_shared_bytes(packed_layer_general_kernel, smem);
   if (rc) return rc;
-  const long long total = batch * n_out;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kSms * kBlocksPerSm) blocks = kSms * kBlocksPerSm;
-  packed_layer_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const uint32_t total = static_cast<uint32_t>(batch) * static_cast<uint32_t>(n_out);
+  const uint32_t wanted = (total + kThreads - 1) / kThreads;
+  const uint32_t blocks = wanted < kMaxBlocks * 2 ? wanted : kMaxBlocks * 2;
+  packed_layer_general_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(weights),
       static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(thr),
       static_cast<int*>(out), batch, n_out, n_words);

@@ -20,8 +20,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import bitops
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.bitpack import WORD, bitpack, pack_bits_words
+from repro_torch.kernels.bitpack import DTYPES, WORD, bitpack, pack_bits_words
 from repro_torch.kernels.bnn_matmul import bnn_matmul_packed
 from repro_torch.kernels.bnn_matmul_mxu import bnn_matmul_mxu
 
@@ -38,16 +39,17 @@ def resolve_impl(implementation: str = "auto", device="cuda") -> str:
 
 
 def _pack_rows(x: torch.Tensor) -> torch.Tensor:
-    """Pack the sign bits (``x >= 0``) of (M, K) rows into (M, ceil(K/32))
-    int32 word views, zero bits padding the last word.
+    """Pack the sign bits (``x >= 0``, ``bitops.sign_bit``) of (M, K) rows
+    into (M, ceil(K/32)) int32 word views, zero bits padding the last word.
 
     On a CUDA tensor this is one launch of the bit-pack kernel: ``bitpack``
-    when K is a multiple of 32 (bf16 is widened to float32 first, which keeps
-    every sign), else ``pack_bits_words`` on the {0,1} bits.
+    when K is a multiple of 32 (float32, bf16 and int32 as they come; other
+    types widened to float32, which keeps every sign bit), else
+    ``pack_bits_words`` on the {0,1} bits.
     """
     if x.shape[-1] % WORD == 0 and x.shape[-1]:
-        return bitpack(x if x.dtype in (torch.float32, torch.int32) else x.float())
-    return pack_bits_words((x >= 0).to(torch.int32))
+        return bitpack(x if x.dtype in DTYPES else x.float())
+    return pack_bits_words(bitops.sign_bit(x).to(torch.int32))
 
 
 def pack_weights(w: torch.Tensor) -> tuple[torch.Tensor, int]:

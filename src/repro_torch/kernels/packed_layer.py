@@ -12,7 +12,16 @@ PyTorch has no popcount op, so the port has a kernel (source:
 All operands are int32 bit views of uint32.  Pad neurons carry the threshold
 ``0xFFFFFFFF`` (``-1`` as a bit view) and must never fire, so the compare is
 unsigned on both paths.  A CPU tensor runs :func:`packed_layer_plain`; a
-CUDA tensor launches the kernel.
+CUDA tensor launches one of two kernels, chosen by :func:`route`:
+
+* ``"quad"``: ``n_out`` a multiple of 4 (at most ``QUAD_MAX_OUT``) and
+  ``n_words`` in ``QUAD_WORDS``, the words aligned to a packet's row: a
+  thread holds 4 neurons' tables in registers and writes 16 bytes a packet;
+* ``"general"``: every other layer (FIVE_TUPLE's 2-neuron output layer, wider
+  layers, misaligned views), one thread per output, tables in shared memory.
+
+Each launch is counted in ``packed_layer.launches`` and, by route, in
+``packed_layer.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -25,12 +34,29 @@ from repro_torch.kernels import _build
 
 
 _P = ctypes.c_void_p
-_SIGNATURES = {
-    "packed_layer": (
-        [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
-        ctypes.c_int,
-    ),
-}
+_I = ctypes.c_int
+ROUTES = ("quad", "general")
+_ENTRY = {path: f"packed_layer_{path}" for path in ROUTES}
+_SIGNATURES = {name: ([_P] * 5 + [_I, _I, _I, _P], _I) for name in _ENTRY.values()}
+
+# The quad route's limits (csrc/packed_layer.cu): a thread's 4 neurons' words
+# live in registers for these word counts, and a block of 256 threads holds
+# at least one packet's n_out / 4 threads.
+QUAD_WORDS = (1, 2, 4)
+QUAD_MAX_OUT = 1024
+# The kernels index with 32-bit integers.
+_MAX_INDEX = 1 << 31
+
+
+def route(words: torch.Tensor, weights: torch.Tensor) -> str:
+    """The kernel a CUDA launch on these (contiguous) operands takes:
+    ``"quad"`` or ``"general"``.  Pure: it reads shapes and ``data_ptr``
+    only, so it can be asked on any device."""
+    n_out, n_words = weights.shape
+    if (n_out % 4 == 0 and 0 < n_out <= QUAD_MAX_OUT and n_words in QUAD_WORDS
+            and words.data_ptr() % (4 * n_words) == 0):
+        return "quad"
+    return "general"
 
 
 def _check_args(words, weights, mask, thresholds) -> None:
@@ -63,8 +89,6 @@ def packed_layer(
     if words.device.type != "cuda":
         raise ValueError(f"packed_layer runs on CPU or CUDA tensors, got {words.device}")
     n_out, n_words = weights.shape
-    if (2 * n_out * n_words + n_out) * 4 > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"a {n_out}x{n_words}-word layer does not fit shared memory")
     words, weights, mask, thresholds = (
         t.contiguous() for t in (words, weights, mask, thresholds)
     )
@@ -72,19 +96,32 @@ def packed_layer(
     out = torch.empty((batch, n_out), dtype=torch.int32, device=words.device)
     if batch == 0 or n_out == 0:
         return out
+    if batch * max(n_out, n_words) >= _MAX_INDEX:
+        raise ValueError(f"a batch of {batch} is beyond the kernels' 32-bit indices")
+    path = route(words, weights)
+    if path == "general" and (2 * n_out * n_words + n_out) * 4 > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"a {n_out}x{n_words}-word layer does not fit shared memory")
+    return _launch(words, weights, mask, thresholds, out, path)
+
+
+def _launch(words, weights, mask, thresholds, out, path: str) -> torch.Tensor:
+    """Launch route ``path``'s kernel on checked, contiguous operands."""
+    n_out, n_words = weights.shape
     lib = _build.library("packed_layer", _SIGNATURES)
     with torch.cuda.device(words.device):
-        code = lib.packed_layer(
+        code = getattr(lib, _ENTRY[path])(
             words.data_ptr(), weights.data_ptr(), mask.data_ptr(),
-            thresholds.data_ptr(), out.data_ptr(), batch, n_out, n_words,
+            thresholds.data_ptr(), out.data_ptr(), words.shape[0], n_out, n_words,
             _build.stream_of(words),
         )
     _build.check(lib, code, "packed_layer")
     packed_layer.launches += 1
+    packed_layer.launches_by_route[path] += 1
     return out
 
 
 packed_layer.launches = 0
+packed_layer.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def packed_layer_plain(

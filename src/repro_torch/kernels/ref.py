@@ -43,9 +43,12 @@ def bnn_matmul_packed_ref(
 
 
 def sign(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """``+1`` where ``x >= 0`` (so ``-0.0`` -> +1), else ``-1`` (NaN -> -1)."""
+    """``+1`` where ``x >= 0`` (so ``-0.0`` -> +1), else ``-1`` (NaN -> -1).
+
+    A negative subnormal gives +1: the reference's signs are computed with
+    subnormals flushed to zero (``bitops.sign_bit``)."""
     one = torch.ones((), dtype=dtype, device=x.device)
-    return torch.where(x >= 0, one, -one)
+    return torch.where(bitops.sign_bit(x), one, -one)
 
 
 def bnn_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

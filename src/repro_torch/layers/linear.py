@@ -10,8 +10,8 @@ regimes selected by the architecture's ``QuantConfig``:
     (32 weights per uint32 word, int32 bit views) plus a per-channel alpha;
     the contraction is XNOR + popcount + affine — N2Net's arithmetic.  On a
     CUDA tensor it is two kernel launches: ``bitpack`` packs the
-    activations' signs and ``bnn_matmul_packed`` contracts them with the
-    weight words.
+    activations' signs (bf16 and float32 activations as they come) and
+    ``bnn_matmul_packed`` contracts them with the weight words.
 """
 from __future__ import annotations
 

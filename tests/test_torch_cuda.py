@@ -165,6 +165,176 @@ def test_packed_layer_kernel_matches_plain(cuda, seed):
     assert not out[:, -2:].any()
 
 
+def _shifted(t, nbytes):
+    """A contiguous copy of ``t`` whose data starts ``nbytes`` past a 16-byte
+    boundary."""
+    itemsize = t.element_size()
+    buf = torch.zeros(t.numel() + 32 // itemsize, dtype=t.dtype, device=t.device)
+    skip = ((16 - buf.data_ptr() % 16) % 16 + nbytes) // itemsize
+    out = buf[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == nbytes
+    return out
+
+
+# Subnormals of both signs, the boundary -FLT_MIN (a normal number), ±0.0,
+# NaN and ±inf, with the sign bit the reference gives each: it computes its
+# signs with subnormals flushed to zero (kernels/ref.py, core/bitops.py::
+# sign_bit), so a negative subnormal packs as 1.
+FLT_MIN = 2.0 ** -126
+PLANTED = [-1e-40, 1e-40, -1e-45, -FLT_MIN / 2, -FLT_MIN, -0.0, 0.0, float("nan"),
+           float("-inf"), float("inf")]
+PLANTED_BITS = [1, 1, 1, 1, 0, 1, 1, 0, 0, 1]
+
+
+def _planted(shape, dtype, gen):
+    """Random data with PLANTED in row 0 from column 3 and -1e-39 (a
+    negative subnormal) in every third column of the last row."""
+    x = torch.randn(shape, generator=gen)
+    width = min(len(PLANTED), shape[1] - 3)
+    x[0, 3:3 + width] = torch.tensor(PLANTED[:width])
+    x[-1, ::3] = -1e-39
+    return x.to(dtype)
+
+
+WIDTHS = [1, 4, 8, 31, 32, 33, 64, 100, 2048]
+
+
+# pack_bits_words: widths that are whole 16-byte vectors take vec (flat at
+# multiples of 32, row by row otherwise), the rest and misaligned views take
+# scalar; the row counts leave partial warp iterations.
+@pytest.mark.parametrize("n", WIDTHS)
+@pytest.mark.parametrize("m", [1, 3, 777])
+def test_pack_bits_words_routes_match_plain(cuda, n, m):
+    gen = torch.Generator().manual_seed(n * 10 + m)
+    bits = torch.randint(0, 2, (m, n), generator=gen, dtype=torch.int32)
+    bits[0] = 1
+    want = bitpack.pack_ge_plain(bits, 1)
+    fn = bitpack.pack_bits_words
+    path = "vec" if n % 4 == 0 else "scalar"
+    assert torch.equal(_launched(fn, path, lambda: fn(bits.to(cuda))).cpu(), want)
+    for nbytes in (4, 8):
+        view = _shifted(bits.to(cuda), nbytes)
+        assert torch.equal(_launched(fn, "scalar", lambda: fn(view)).cpu(), want)
+
+
+# bitpack in float32, bf16 and int32 on both routes, with the planted signs.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("k", [32, 64, 2048])
+@pytest.mark.parametrize("m", [1, 4, 777])
+def test_bitpack_routes_match_plain(cuda, dtype, k, m):
+    gen = torch.Generator().manual_seed(k + m)
+    if dtype == torch.int32:
+        x = torch.randint(-5, 5, (m, k), generator=gen, dtype=torch.int32)
+    else:
+        x = _planted((m, k), dtype, gen)
+    want = bitpack.pack_ge_plain(x, 0)
+    fn = bitpack.bitpack
+    before = dict(fn.launches_by_dtype)
+    assert torch.equal(_launched(fn, "vec", lambda: fn(x.to(cuda))).cpu(), want)
+    for nbytes in (4, 8):
+        view = _shifted(x.to(cuda), nbytes)
+        assert torch.equal(_launched(fn, "scalar", lambda: fn(view)).cpu(), want)
+    name = str(dtype).removeprefix("torch.")
+    assert fn.launches_by_dtype[name] == before[name] + 3
+    if dtype != torch.int32:
+        bits = bitops.unpack_bits(bitops.i32_to_u32(want[:1]))
+        assert bits[0, 3:13].tolist() == PLANTED_BITS
+
+
+# The tensor-core GEMM's three sign sites: the staged route's float32 and
+# bf16 staging, and the tma route's bf16x2 compare.
+@pytest.mark.parametrize("dtype,k,path", [
+    (torch.float32, 64, "staged"), (torch.bfloat16, 100, "staged"), (torch.bfloat16, 64, "tma"),
+])
+def test_bnn_matmul_mxu_signs_of_subnormals(cuda, dtype, k, path):
+    gen = torch.Generator().manual_seed(k)
+    x = _planted((130, k), dtype, gen)
+    w = ref.sign(torch.randn((k, 72), generator=gen), torch.bfloat16)
+    mxu = bnn_matmul_mxu.bnn_matmul_mxu
+    got = _launched(mxu, path, lambda: mxu(x.to(cuda), w.to(cuda)))
+    assert torch.equal(got.cpu(), bnn_matmul_mxu.bnn_matmul_mxu_plain(x, w))
+    # Negative subnormals and -0.0 sign to +1, -FLT_MIN to -1.
+    xs = torch.full((2, k), -1e-39)
+    xs[0, ::2], xs[1] = -0.0, -FLT_MIN
+    ones = torch.ones((k, 8), dtype=torch.bfloat16, device=cuda)
+    got = _launched(mxu, path, lambda: mxu(xs.to(cuda, dtype), ones))
+    assert got.cpu().tolist() == [[float(k)] * 8, [-float(k)] * 8]
+
+
+def _layer_operands(rng, batch, n_out, n_words, pad):
+    """Random packed operands with ``pad`` never-firing pad neurons."""
+    u32 = lambda *shape: rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+    words, weights, mask = u32(batch, n_words), u32(n_out, n_words), u32(n_out, n_words)
+    thr = rng.integers(0, 32 * n_words + 2, n_out).astype(np.uint32)
+    if pad:
+        weights[-pad:], mask[-pad:], thr[-pad:] = 0, 0, 0xFFFFFFFF
+    words[0], weights[0], mask[0] = 0xFFFFFFFF, 0, 0xFFFFFFFF
+    return [torch.from_numpy(a.view(np.int32)) for a in (words, weights, mask, thr)]
+
+
+# quad for n_out % 4 == 0 and 1, 2 or 4 words, general otherwise; the batch
+# leaves partial block steps.
+@pytest.mark.parametrize("n_out", [2, 4, 32, 64])
+@pytest.mark.parametrize("n_words", [1, 2, 4, 5])
+@pytest.mark.parametrize("batch", [1, 1000, 40000])
+def test_packed_layer_routes_match_plain(cuda, n_out, n_words, batch):
+    rng = np.random.default_rng(n_out * 100 + n_words * 10 + batch)
+    pad = min(2, n_out - 1)
+    args = _layer_operands(rng, batch, n_out, n_words, pad)
+    want = packed_layer.packed_layer_plain(*args)
+    fn = packed_layer.packed_layer
+    path = "quad" if n_out % 4 == 0 and n_words in (1, 2, 4) else "general"
+    dev = [a.to(cuda) for a in args]
+    got = _launched(fn, path, lambda: fn(*dev))
+    assert torch.equal(got.cpu(), want)
+    assert not got[:, n_out - pad:].any()
+    for nbytes in (4, 8):
+        words = _shifted(dev[0], nbytes)
+        shifted = "quad" if path == "quad" and nbytes % (4 * n_words) == 0 else "general"
+        assert torch.equal(_launched(fn, shifted, lambda: fn(words, *dev[1:])).cpu(), want)
+
+
+# FIVE_TUPLE's packed layers at their shapes (4, 2 and 1 words; the 2-neuron
+# output layer takes general) and the scan plan's stacked layers, whose pad
+# neurons must never fire.
+def test_packed_layer_five_tuple_layers(cuda):
+    from repro_torch.configs.n2net_paper import FIVE_TUPLE
+    from repro_torch.dataplane import lowering
+
+    lp = _lowered(FIVE_TUPLE.layer_sizes, seed=5)
+    rng = np.random.default_rng(5)
+    h = torch.from_numpy(rng.integers(0, 2, (5000, FIVE_TUPLE.input_bits)).astype(np.int32)).to(cuda)
+    fn = packed_layer.packed_layer
+    for pl, path in zip(lp.packed.layers, ("quad", "quad", "general")):
+        args = (bitpack.pack_bits_words(h), executor._i32(pl.weights).to(cuda),
+                executor._i32(pl.mask).to(cuda), executor._i32(pl.thresholds).to(cuda))
+        out = _launched(fn, path, lambda: fn(*args))
+        assert torch.equal(out, packed_layer.packed_layer_plain(*args))
+        h = out
+    sp = lowering.stack_packed_layers(lp.packed)
+    h = torch.from_numpy(rng.integers(0, 2, (5000, sp.max_bits)).astype(np.int32)).to(cuda)
+    for li, pl in enumerate(lp.packed.layers):
+        args = (bitpack.pack_bits_words(h)[:, :sp.max_words].contiguous(),
+                executor._i32(sp.weights[li]).to(cuda), executor._i32(sp.mask[li]).to(cuda),
+                executor._i32(sp.thresholds[li]).to(cuda))
+        out = _launched(fn, "quad", lambda: fn(*args))
+        assert torch.equal(out, packed_layer.packed_layer_plain(*args))
+        assert not out[:, pl.n_out:].any()
+        h = torch.nn.functional.pad(out, (0, sp.max_bits - out.shape[1]))
+
+
+@pytest.mark.parametrize("scan_hops", [False, True])
+def test_execute_five_tuple_packed_on_cuda_matches_cpu(cuda, scan_hops):
+    from repro_torch.configs.n2net_paper import FIVE_TUPLE
+
+    lp = _lowered(FIVE_TUPLE.layer_sizes, seed=6)
+    packets = traffic.generate("ddos_burst", 5000, FIVE_TUPLE.input_bits, seed=3)
+    cpu = executor.execute(lp, packets, backend="packed", scan_hops=scan_hops, device="cpu")
+    gpu = executor.execute(lp, packets, backend="packed", scan_hops=scan_hops, chunk_size=2048)
+    np.testing.assert_array_equal(gpu, cpu)
+
+
 @pytest.mark.parametrize("backend,scan_hops", [("jnp", False), ("packed", False), ("packed", True)])
 def test_execute_on_cuda_matches_cpu(cuda, backend, scan_hops):
     lp = _lowered((32, 64, 32), seed=7)
@@ -261,16 +431,6 @@ def _launched(fn, path, call):
     return out
 
 
-def _misaligned(t):
-    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
-    boundary."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    out = buf[1:].view(t.shape)
-    out.copy_(t)
-    assert out.data_ptr() % 16 == 2
-    return out
-
-
 # bf16 with K and N multiples of 8 takes the tma kernel, the rest the staged
 # one.
 @pytest.mark.parametrize("m,n,k", [(64, 64, 32), (100, 70, 513), (3, 130, 64), (130, 264, 1000)])
@@ -314,7 +474,7 @@ def test_bnn_matmul_mxu_misaligned_operand_takes_staged_route(cuda):
     w = ref.sign(torch.randn((64, 72), generator=gen), torch.bfloat16).to(cuda)
     want = bnn_matmul_mxu.bnn_matmul_mxu_plain(x, w)
     mxu = bnn_matmul_mxu.bnn_matmul_mxu
-    for xa, wa in ((_misaligned(x), w), (x, _misaligned(w))):
+    for xa, wa in ((_shifted(x, 2), w), (x, _shifted(w, 2))):
         assert torch.equal(_launched(mxu, "staged", lambda: mxu(xa, wa)), want)
 
 
@@ -372,7 +532,7 @@ def test_flash_attention_misaligned_operand_takes_wmma_route(cuda, which):
     gen = torch.Generator().manual_seed(which)
     qkv = [torch.randn((3, 100, 64), generator=gen).to(cuda, torch.bfloat16) for _ in range(3)]
     want = flash_attention.flash_attention_plain(*qkv)
-    qkv[which] = _misaligned(qkv[which])
+    qkv[which] = _shifted(qkv[which], 2)
     fa = flash_attention.flash_attention
     got = _launched(fa, "wmma", lambda: fa(*qkv))
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)

@@ -18,6 +18,7 @@ from repro_torch.dataplane import executor as texec
 from repro_torch.dataplane import lowering as tlow
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitpack as tbitpack
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import optable_exec as topt
 from repro_torch.kernels import packed_layer as tpl
 
@@ -190,6 +191,30 @@ def test_bitpack_matches_pallas_interpret(dtype):
     ref = jbitpack.bitpack(jnp.asarray(x), interpret=True)
     port = tbitpack.bitpack(torch.from_numpy(x))
     np.testing.assert_array_equal(port.numpy(), np.asarray(ref).view(np.int32))
+
+
+@pytest.mark.parametrize("k", [32, 64, 256])
+def test_bitpack_bf16_matches_pallas_interpret(k):
+    x = torch.randn((8, k), generator=torch.Generator().manual_seed(k)).to(torch.bfloat16)
+    x[0, :4] = torch.tensor([0.0, -0.0, -1e-30, 1e-30])
+    x[1, :2] = torch.tensor([float("nan"), float("-inf")])
+    jx = jnp.asarray(x.view(torch.int16).numpy().view(jnp.bfloat16))
+    ref = jbitpack.bitpack(jx, interpret=True)
+    port = tbitpack.bitpack(x)
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref).view(np.int32))
+
+
+def test_pack_rows_passes_bf16_to_bitpack_without_a_cast(monkeypatch):
+    seen = []
+
+    def spy(x):
+        seen.append(x)
+        return tbitpack.bitpack(x)
+
+    monkeypatch.setattr(tops, "bitpack", spy)
+    x = torch.randn((4, 96)).to(torch.bfloat16)
+    tops._pack_rows(x)
+    assert len(seen) == 1 and seen[0] is x
 
 
 def test_bitpack_rejects_bad_input():

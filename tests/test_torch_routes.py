@@ -1,5 +1,6 @@
 """Which kernel a CUDA launch takes: the route functions of the port's
-``flash_attention``, ``bnn_matmul_mxu`` and ``bnn_matmul_packed`` wrappers.
+``flash_attention``, ``bnn_matmul_mxu``, ``bnn_matmul_packed``, ``bitpack``
+(and ``pack_bits_words``) and ``packed_layer`` wrappers.
 
 Each wrapper picks one C entry point by a pure function of dtype, shape and
 ``data_ptr`` (never by trying one kernel and catching its failure), so the
@@ -12,9 +13,11 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch.kernels import bitpack as tbitpack
 from repro_torch.kernels import bnn_matmul as tpacked
 from repro_torch.kernels import bnn_matmul_mxu as tmxu
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import packed_layer as tlayer
 
 
 def _offset(shape, dtype, nbytes=2):
@@ -131,4 +134,76 @@ def test_packed_cpu_calls_launch_nothing():
     for m in (4, 100):
         out = fn(_words(m, 96), _words(300, 96), k_bits=3000)
         assert out.shape == (m, 300) and out.device.type == "cpu"
+    assert (fn.launches, fn.launches_by_route) == before
+
+
+# bitpack / pack_bits_words: 16-byte loads when a row is a whole number of
+# 16-byte vectors (4 float32 or int32, 8 bf16) and the input is aligned.
+WIDTHS = [1, 4, 8, 31, 32, 33, 64, 100, 2048]
+
+
+@pytest.mark.parametrize("n", WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16])
+def test_bitpack_route_by_width_and_type(n, dtype):
+    per_load = 8 if dtype == torch.bfloat16 else 4
+    want = "vec" if n % per_load == 0 else "scalar"
+    assert tbitpack.route(torch.zeros((3, n), dtype=dtype)) == want
+
+
+@pytest.mark.parametrize("nbytes", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16])
+def test_bitpack_misaligned_input_takes_scalar(nbytes, dtype):
+    assert tbitpack.route(_offset((3, 64), dtype, nbytes)) == "scalar"
+
+
+def test_bitpack_cpu_calls_launch_nothing():
+    fns = (tbitpack.bitpack, tbitpack.pack_bits_words)
+    for fn in fns:
+        assert set(fn.launches_by_route) == {"vec", "scalar"}
+        assert set(fn.launches_by_dtype) == {"float32", "bfloat16", "int32"}
+    before = [(fn.launches, dict(fn.launches_by_route), dict(fn.launches_by_dtype)) for fn in fns]
+    for dtype in (torch.float32, torch.int32, torch.bfloat16):
+        assert tbitpack.bitpack(torch.zeros((3, 64), dtype=dtype)).device.type == "cpu"
+    tbitpack.pack_bits_words(torch.zeros((3, 33), dtype=torch.int32))
+    assert [(fn.launches, fn.launches_by_route, fn.launches_by_dtype) for fn in fns] == before
+
+
+# packed_layer: 4 neurons a thread when n_out % 4 == 0 (up to QUAD_MAX_OUT)
+# and a packet's words (1, 2 or 4) load as one aligned vector.
+def _layer(n_out, n_words):
+    return torch.zeros((n_out, n_words), dtype=torch.int32)
+
+
+@pytest.mark.parametrize("n_out", [2, 4, 32, 64])
+@pytest.mark.parametrize("n_words", [1, 2, 4, 5])
+def test_packed_layer_route_by_shape(n_out, n_words):
+    want = "quad" if n_out % 4 == 0 and n_words in (1, 2, 4) else "general"
+    assert tlayer.route(torch.zeros((7, n_words), dtype=torch.int32), _layer(n_out, n_words)) == want
+
+
+def test_packed_layer_wide_layers_take_general():
+    words = torch.zeros((7, 2), dtype=torch.int32)
+    assert tlayer.route(words, _layer(tlayer.QUAD_MAX_OUT, 2)) == "quad"
+    assert tlayer.route(words, _layer(tlayer.QUAD_MAX_OUT + 4, 2)) == "general"
+
+
+# A packet's words load as one 4 * n_words-byte vector: a view misaligned by
+# 4 bytes still takes quad at one word, by 8 bytes at up to two.
+@pytest.mark.parametrize("nbytes,n_words,want", [
+    (4, 1, "quad"), (4, 2, "general"), (4, 4, "general"),
+    (8, 1, "quad"), (8, 2, "quad"), (8, 4, "general"),
+])
+def test_packed_layer_misaligned_words(nbytes, n_words, want):
+    words = _offset((7, n_words), torch.int32, nbytes)
+    assert tlayer.route(words, _layer(32, n_words)) == want
+
+
+def test_packed_layer_cpu_calls_launch_nothing():
+    fn = tlayer.packed_layer
+    assert set(fn.launches_by_route) == {"quad", "general"}
+    before = (fn.launches, dict(fn.launches_by_route))
+    for n_out, n_words in ((32, 2), (2, 1), (9, 5)):
+        out = fn(torch.zeros((7, n_words), dtype=torch.int32), _layer(n_out, n_words),
+                 _layer(n_out, n_words), torch.zeros(n_out, dtype=torch.int32))
+        assert out.shape == (7, n_out) and out.device.type == "cpu"
     assert (fn.launches, fn.launches_by_route) == before
