@@ -28,7 +28,23 @@ What it does, in order:
    the ``vec`` and ``quad`` routes.  The two outputs must agree on every
    packet, and on the first chunk with the port's interpreter and the BNN
    oracle;
-5. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
+5. the switch fabric: FIVE_TUPLE (``BnnSpec((128, 64, 32, 2))``, weights
+   from a fixed seed) compiled for the RMT chip partitions into 4 hops; in
+   the ``multi_hop`` and ``recirculate`` modes, 2**20 ``ddos_burst``
+   packets at chunk 32768 run through ``SwitchFabric.run`` on three paths
+   (the op-table backend over the stacked hops, the op-table backend hop by
+   hop, the packed backend), each bit-exact with ``executor.execute`` of the
+   unsliced program on every packet and, on the first chunk, with the
+   interpreter and the BNN oracle; ``optable_run`` launches hops x (chunks
+   + 1) times a run, the packed kernels layers x (chunks + 1); the unsliced
+   program through ``execute_stream`` (one switch) is the baseline;
+6. train -> export -> deploy: ``BnnTrainer(BnnTrainConfig())`` (the default
+   ``(32, 128, 64, 1)`` model, 600 steps of batch 512, ``iot_telemetry``
+   against ``ddos_burst``) trains on the card to at least 90% held-out
+   accuracy, exports, and ``verify_roundtrip`` over a 5-hop ``multi_hop``
+   fabric (op-table and packed backends) finds no packet where the oracle,
+   the executor, the fabric and the trainer's own forward bits disagree;
+7. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
    fixed seed):
    a. holds ``bnn_matmul_packed`` (bit for bit, at the decode and prefill
       shapes of the model's three projection shapes, on the stream and the
@@ -54,10 +70,11 @@ What it does, in order:
       ``attn_impl="pallas_flash"`` (one ``flash_attention`` launch per
       layer, every one on the tma route), and holds a 2-layer float32
       copy's flash logits against its plain-attention logits;
-6. prints one JSON line of per-kernel numbers, then the status line.
+8. prints one JSON line of per-kernel numbers, then the status line.  The
+   packet kernels' ``launches`` sum their ``launches_by_path``.
 
 Every path is driven with all launch counts zeroed just before it and read
-just after.  Any failure raises, so the script exits non-zero; it also exits
+just after.  Serving and scoring run under ``torch.inference_mode()``.  Any failure raises, so the script exits non-zero; it also exits
 non-zero without a CUDA device, before doing anything.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -79,14 +96,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs.n2net_paper import FIVE_TUPLE, HEADLINE  # noqa: E402
 from repro_torch.core import bitops, bnn, compiler, interpreter  # noqa: E402
+from repro_torch.core.export import verify_roundtrip  # noqa: E402
 from repro_torch.core.pipeline import RMT, RMT_NATIVE_POPCNT  # noqa: E402
 from repro_torch.dataplane import executor, lowering, traffic  # noqa: E402
+from repro_torch.dataplane.fabric import MODES, SwitchFabric  # noqa: E402
 from repro_torch.kernels import _build, bitpack, optable_exec, packed_layer  # noqa: E402
 from repro_torch import models  # noqa: E402
 from repro_torch.configs.base import QuantConfig, get_config  # noqa: E402
 from repro_torch.kernels import bnn_matmul, bnn_matmul_mxu, flash_attention, ref  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
+from repro_torch.train.bnn_trainer import BnnTrainConfig, BnnTrainer  # noqa: E402
 
 PACKETS = 1 << 20
 CHUNK = 1 << 15
@@ -109,6 +129,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # 989 TFLOP/s (H100 SXM data sheet).
 POPC_PER_S = 16 * 132 * 1.98e9
 BF16_TENSOR_FLOPS = 989e12
+
+FABRIC_HOPS = 4        # FIVE_TUPLE's 122 elements on the 32-element RMT chip
+TRAIN_HOPS = 5         # the trainer's default model: 159 elements
+TRAIN_MIN_ACCURACY = 0.90  # the gate of examples/train_deploy_loop.py
 
 LM_ARCH = "phi3-mini-3.8b"
 LM_REQUESTS = 8
@@ -452,11 +476,11 @@ def drive_main_path(dev, lp, records: dict) -> dict:
         for name in path_kernels[backend]:
             if launches[name] <= 0:
                 raise AssertionError(f"the {label} backend never launched {name}")
-            records[name]["launches"] = launches[name]
             by_route = counters[name].launches_by_route if name in path_routes else {}
             if by_route and by_route[path_routes[name]] != launches[name]:
                 raise AssertionError(f"{name} launches by route {by_route}, expected all on "
                                      f"{path_routes[name]}")
+        count_path(records, f"packet path, {label}", {n: launches[n] for n in path_kernels[backend]})
         results[backend] = sr
         print(
             f"main path, {label} backend: {sr.packets} packets in {sr.chunks} chunks, "
@@ -464,6 +488,119 @@ def drive_main_path(dev, lp, records: dict) -> dict:
             f"(warm-up {sr.warmup_seconds:.2f} s), launches {launches}"
         )
     return results
+
+
+def count_path(records: dict, path: str, launches: dict) -> None:
+    """Add one path's launch counts to the records' ``launches_by_path``."""
+    for name, n in launches.items():
+        records[name].setdefault("launches_by_path", {})[path] = n
+
+
+def check_stacked_planes(dev, prog, lp, first: torch.Tensor, records: dict) -> None:
+    """``optable_run`` on each stacked hop plane against its plain version,
+    chained over the first chunk's parsed registers with a nonzero null
+    register: the last hop's whole pad elements (no true row) must zero it
+    as the plain version does.  Not counted as main-path launches."""
+    stacked = SwitchFabric.partition(prog).stacked_hops()
+    regs = executor.parse_packets(first, *executor._device_tables(lp, dev).io[:2], num_regs=lp.num_regs)
+    regs[-1] = 0xBEEF
+    err = 0
+    for h, tables in enumerate(executor._stacked_tables(stacked, dev)):
+        plan, _ = optable_exec.prepare(tables, stacked.num_regs)
+        empty = int((plan.rows == 0).sum())
+        out = optable_exec.optable_run(regs, *tables)
+        err = max(err, same(f"optable_run stacked hop {h} of {stacked.num_hops} ({empty} elements with "
+                            f"no true row, nonzero null register)",
+                            out, optable_exec.optable_run_plain(regs, *tables)))
+        regs = out
+    if not empty:
+        raise AssertionError("the last stacked hop has no pad element: nothing checked the pads")
+    records["optable_run"]["max_abs_err"] = max(records["optable_run"]["max_abs_err"], err)
+
+
+def drive_fabric(dev, prog, params, records: dict) -> None:
+    """FIVE_TUPLE across FABRIC_HOPS switches: both modes, three paths each,
+    over all PACKETS packets, each run's launches counted from zero."""
+    packets = traffic.generate(SCENARIO, PACKETS, FIVE_TUPLE.input_bits, seed=SEED)
+    lp = prog.lower()
+    t0 = time.perf_counter()
+    want = executor.execute(lp, packets, chunk_size=CHUNK, device=dev)
+    print(f"fabric: FIVE_TUPLE {lp.summary()}; executor.execute of the unsliced program on "
+          f"{PACKETS} packets: {time.perf_counter() - t0} s")
+    first = torch.from_numpy(packets[:CHUNK]).to(dev)
+    witness = interpreter.run_program(prog, first, device=dev).cpu().numpy()
+    oracle = bnn.forward([p.to(dev) for p in params], first).cpu().numpy()
+    if not (np.array_equal(want[:CHUNK], witness) and np.array_equal(witness, oracle)):
+        raise AssertionError("fabric: executor disagrees with run_program or the BNN oracle on the first chunk")
+    check_stacked_planes(dev, prog, lp, first, records)
+    # One switch, no hops: the same program in one launch a chunk, the
+    # baseline of what the hop chain costs.
+    zero_counts()
+    sr = executor.execute_stream(lp, (packets[i:i + CHUNK] for i in range(0, PACKETS, CHUNK)),
+                                 chunk_size=CHUNK, collect=True, device=dev)
+    launches = read_counts()
+    if not np.array_equal(sr.outputs, want):
+        raise AssertionError("fabric: execute_stream of the unsliced program disagrees with execute")
+    count_path(records, "fabric baseline, one switch (execute_stream)", launches)
+    print(f"fabric baseline, one switch: {sr.packets} packets, {sr.seconds} s -> {sr.packets_per_second} "
+          f"pkt/s (warm-up {sr.warmup_seconds} s); launches {launches}")
+    runs = -(-PACKETS // CHUNK) + 1  # every chunk and the warm call
+    layers = len(lp.packed.layers)
+    paths = (("op-table scanned", "jnp", True, {"optable_run": FABRIC_HOPS * runs}),
+             ("op-table unrolled", "jnp", False, {"optable_run": FABRIC_HOPS * runs}),
+             ("packed", "packed", None, {"pack_bits_words": layers * runs, "packed_layer": layers * runs}))
+    for mode in MODES:
+        fab = SwitchFabric.partition(prog, mode=mode)
+        ranges = [h.element_range for h in fab.hops]
+        if fab.num_hops != FABRIC_HOPS:
+            raise AssertionError(f"FIVE_TUPLE partitions into {fab.num_hops} hops {ranges}, not {FABRIC_HOPS}")
+        for label, backend, scan_hops, expect in paths:
+            torch.cuda.synchronize()
+            zero_counts()
+            res = fab.run(packets, backend=backend, scan_hops=scan_hops, chunk_size=CHUNK, device=dev)
+            launches = read_counts()
+            if launches != expect:
+                raise AssertionError(f"fabric {mode} {label}: launches {launches}, expected {expect}")
+            if not np.array_equal(res.outputs, want):
+                bad = int((res.outputs != want).any(axis=1).sum())
+                raise AssertionError(f"fabric {mode} {label}: {bad} packets disagree with executor.execute")
+            count_path(records, f"fabric {mode}, {label}", launches)
+            print(f"fabric {mode}, {label}: {FABRIC_HOPS} hops {ranges}, {res.packets} packets, "
+                  f"{res.seconds} s -> {res.packets_per_second} pkt/s (warm-up {res.warmup_seconds} s); "
+                  f"hop_seconds {[float(t) for t in res.hop_seconds]} ({'attributed by elements' if res.scanned else 'measured'}); "
+                  f"launches {launches}; bit-exact with executor.execute on every packet")
+        print(fab.telemetry().render())
+    print(f"fabric: all three paths in both modes bit-exact on {PACKETS} packets; first chunk == "
+          f"run_program == bnn.forward")
+
+
+def drive_train_deploy(dev, records: dict) -> None:
+    """Train the default BNN on the card, export it, and prove it bit-exact
+    across a TRAIN_HOPS-switch fabric on both backends."""
+    torch.cuda.synchronize()
+    zero_counts()
+    trainer = BnnTrainer(BnnTrainConfig(), device=dev)
+    summary = trainer.train()
+    held = trainer.evaluate_held_out()
+    print(f"train: {trainer.cfg.layer_sizes}, {summary['final_step']} steps of batch {trainer.cfg.batch} in "
+          f"{summary['seconds']} s -> {summary['steps_per_second']} steps/s; final loss "
+          f"{summary['history'][-1]['loss']}; held-out accuracy {held['accuracy']} on {held['packets']} packets")
+    if held["accuracy"] < TRAIN_MIN_ACCURACY:
+        raise AssertionError(f"held-out accuracy {held['accuracy']} < {TRAIN_MIN_ACCURACY}")
+    if read_counts():
+        raise AssertionError(f"training launched a packet kernel: {read_counts()}")
+    exported = trainer.export()
+    ref_bits = trainer.forward_bits(trainer.eval_x)
+    for backend in ("jnp", "packed"):
+        rep = verify_roundtrip(exported, trainer.eval_x, mode="multi_hop", backend=backend,
+                               reference_bits=ref_bits, check=False, device=dev)
+        print(f"deploy ({backend}): {rep.summary()} in {rep.verify_seconds} s")
+        if rep.hops != TRAIN_HOPS or not rep.ok or rep.reference_mismatches != 0:
+            raise AssertionError(f"train -> deploy: {rep.summary()} (expected {TRAIN_HOPS} hops, 0 mismatches)")
+    launches = read_counts()
+    count_path(records, "train -> deploy (verify_roundtrip)", launches)
+    print(f"train -> deploy: launches {launches}")
+
 
 # ---------------------------------------------------------------------------
 # The LM slice
@@ -739,6 +876,7 @@ def drive_binary_matmul(dev, cfg, gen) -> dict:
     return launches
 
 
+@torch.inference_mode()
 def drive_serving(dev, cfg, params) -> dict:
     """The slice's main path: the Engine serves LM_REQUESTS requests."""
     rng = np.random.default_rng(SEED)
@@ -788,6 +926,7 @@ def drive_serving(dev, cfg, params) -> dict:
     return launches
 
 
+@torch.inference_mode()
 def drive_scoring(dev, cfg, params, gen) -> dict:
     """``forward`` with the flash kernel over one LM_SCORE_LEN-token sequence,
     then a 2-layer float32 unquantized copy: flash logits vs plain attention."""
@@ -830,6 +969,7 @@ def main() -> int:
     prog = compiler.compile_bnn([w.numpy() for w in params], RMT)
     lp = prog.lower()
     five = bnn.init_params(FIVE_TUPLE, torch.Generator().manual_seed(SEED + 1))
+    five_prog = compiler.compile_bnn([w.numpy() for w in five], RMT)
     print(lp.summary())
     first = traffic.generate(SCENARIO, CHUNK, HEADLINE.input_bits, seed=SEED)
     pkt = torch.from_numpy(first).to(dev)
@@ -842,7 +982,7 @@ def main() -> int:
         "HEADLINE/rmt+popcnt32": (
             compiler.compile_bnn([w.numpy() for w in params], RMT_NATIVE_POPCNT).lower(), pkt),
         "FIVE_TUPLE/rmt": (
-            compiler.compile_bnn([w.numpy() for w in five], RMT).lower(),
+            five_prog.lower(),
             torch.from_numpy(traffic.generate(SCENARIO, CHUNK, FIVE_TUPLE.input_bits, seed=SEED)).to(dev)),
     }
     records = {
@@ -866,6 +1006,15 @@ def main() -> int:
     if not (np.array_equal(opt[:CHUNK], witness) and np.array_equal(witness, oracle)):
         raise AssertionError("first chunk disagrees with run_program or the BNN oracle")
     print(f"both backends agree on all {PACKETS} packets; first chunk == run_program == bnn.forward")
+
+    t_phase = time.perf_counter()
+    drive_fabric(dev, five_prog, five, records)
+    print(f"fabric phase: {time.perf_counter() - t_phase} s")
+    t_phase = time.perf_counter()
+    drive_train_deploy(dev, records)
+    print(f"train -> deploy phase: {time.perf_counter() - t_phase} s")
+    for name in ("optable_run", "pack_bits_words", "packed_layer"):
+        records[name]["launches"] = sum(records[name]["launches_by_path"].values())
 
     t_lm = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products stay float32 (the default)
@@ -892,7 +1041,7 @@ def main() -> int:
              launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=r.get("library_ms"),
-             **{key: r[key] for key in ("old_route_ms", "back_to_back_ms") if key in r})
+             **{key: r[key] for key in ("old_route_ms", "back_to_back_ms", "launches_by_path") if key in r})
         for name, r in records.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,7 @@
 """Carry weights from the reference package into the port: a BNN's layers
-(:func:`params_from_jax`) and an LM's parameter tree (:func:`lm_params_from_jax`).
+(:func:`params_from_jax`), a BNN trainer's latent weights
+(:func:`bnn_latent_from_jax`) and an LM's parameter tree
+(:func:`lm_params_from_jax`).
 
 The reference keeps parameters as JAX arrays; this module takes them as
 numpy arrays (``[np.asarray(w) for w in params]``), so the port never
@@ -112,3 +114,25 @@ def _index(node, i: int):
     if isinstance(node, dict):
         return {k: _index(v, i) for k, v in node.items()}
     return node[i].clone()
+
+
+def bnn_latent_from_jax(latent: Sequence, *, device="cuda") -> list[torch.Tensor]:
+    """Carry a BNN trainer's latent weights from the reference package into
+    the port: one ``(n_out, n_in)`` float array per layer (``[np.asarray(w)
+    for w in trainer.latent]``) -> float32 tensors on ``device``, bit for
+    bit.  The port's trainer takes them as its ``latent`` (with a fresh
+    ``optimizer.init``)."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    out = []
+    for li, w in enumerate(latent):
+        w = np.asarray(w)
+        if w.ndim != 2 or w.dtype.kind != "f":
+            raise ValueError(f"layer {li}: latent must be a 2-D float array, got {w.dtype} {w.shape}")
+        if out and w.shape[1] != out[-1].shape[0]:
+            raise ValueError(
+                f"layer {li}: fan-in {w.shape[1]} != previous layer's {out[-1].shape[0]} outputs"
+            )
+        out.append(torch.from_numpy(w.astype(np.float32)).to(dev))
+    return out

@@ -137,3 +137,37 @@ def packed_forward(params: Sequence[torch.Tensor], x_bits: torch.Tensor) -> torc
         dot = bitops.packed_dot(hp[..., None, :], wp, n_in)  # (..., n_out)
         h = (dot >= 0).to(torch.int32)
     return h
+
+
+# ---------------------------------------------------------------------------
+# Training support (BinaryNet-style straight-through estimator).  The paper is
+# forward-only; STE training is the framework addition that makes BNN layers
+# trainable (``train.bnn_trainer``) and usable inside the LM's BinaryDense
+# (``kernels.ops.ste_sign`` is this same primitive).
+# ---------------------------------------------------------------------------
+
+class _BinarizeSte(torch.autograd.Function):
+    """sign(w) forward; the gradient passes where |w| <= 1 (BinaryNet
+    clipping) and is 0 elsewhere."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.save_for_backward(w)
+        one = torch.ones((), dtype=w.dtype, device=w.device)
+        return torch.where(bitops.sign_bit(w), one, -one)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return g * (w.abs() <= 1.0).to(g.dtype)
+
+
+def binarize_ste(w_latent: torch.Tensor) -> torch.Tensor:
+    """sign(w) in ±1 (``w >= 0`` -> +1, ``bitops.sign_bit``) with identity
+    gradient inside |w| <= 1 (straight-through)."""
+    return _BinarizeSte.apply(w_latent)
+
+
+def params_from_latent(latent: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Latent fp weights -> {0,1} bit matrices for inference export."""
+    return [bitops.sign_to_bits(w) for w in latent]

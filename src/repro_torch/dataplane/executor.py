@@ -54,6 +54,7 @@ from repro_torch import obs
 from repro_torch.core import bitops
 from repro_torch.dataplane import lowering
 from repro_torch.dataplane.lowering import LoweredProgram
+from repro_torch.dataplane.plan import Backend
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bitpack import pack_bits_words
 from repro_torch.kernels.optable_exec import optable_run, optable_run_segmented
@@ -62,17 +63,24 @@ from repro_torch.kernels.packed_layer import packed_layer
 
 DEFAULT_CHUNK = 1 << 15  # 32768 packets per device dispatch
 
-# The reference's backend strings: every op-table alias resolves to "jnp".
-_BACKENDS = {"auto": "jnp", "jnp": "jnp", "fused": "jnp", "pallas": "jnp", "packed": "packed"}
-
-
-def resolve_backend(backend: str = "auto") -> str:
+def resolve_backend(backend="auto") -> str:
     """Normalize a backend choice: ``"jnp"`` (the op-table path, whatever
-    alias named it) or ``"packed"``."""
-    try:
-        return _BACKENDS[backend]
-    except KeyError:
-        raise ValueError(f"backend must be one of {tuple(_BACKENDS)}, got {backend!r}") from None
+    alias named it) or ``"packed"``.
+
+    Accepts whatever :meth:`repro_torch.dataplane.plan.Backend.coerce` does:
+    the reference's strings and :class:`~repro_torch.dataplane.plan.Backend`
+    members alike (``Backend.PALLAS`` is the op-table path, as ``"pallas"``
+    is).  ``Backend.INTERPRETER`` is a reference path, reached only through
+    ``plan.run``.
+    """
+    backend = Backend.coerce(backend)
+    if backend is Backend.INTERPRETER:
+        raise ValueError(
+            "the interpreter backend is a reference path, not an executor: "
+            "reach it through repro_torch.dataplane.plan.run(program, packets, "
+            "plan=ExecutionPlan(backend=Backend.INTERPRETER))"
+        )
+    return "packed" if backend is Backend.PACKED else "jnp"
 
 
 def _i32(a: np.ndarray) -> torch.Tensor:
@@ -305,6 +313,53 @@ def run_hop(lowered: LoweredProgram, regs: torch.Tensor, *, backend: str = "jnp"
         )
     t = _device_tables(lowered, regs.device)
     return optable_run_segmented(regs, *t.ops, t.first_write, runs=t.runs)
+
+
+_HOP_TABLES = ("opcode", "dst", "src0", "src1", "imm0", "imm1", "mask", "first_write")
+_STACKED_CACHE: dict[tuple[str, str], tuple] = {}
+
+
+def _stacked_tables(stacked: lowering.StackedHops, device: torch.device) -> tuple:
+    """Each hop's 8 tables of ``stacked`` as tensors on ``device``, made once
+    per chain and device.  The kernel's plans are cached by table tensor, so
+    the same tensors serve every chunk (a fresh view a chunk would plan
+    every hop again); on a CUDA device they are planned here, from the host
+    copies."""
+    key = (stacked.fingerprint, str(device))
+    hops = _STACKED_CACHE.get(key)
+    if hops is None:
+        hops = []
+        for h in range(stacked.num_hops):
+            host = tuple(np.ascontiguousarray(getattr(stacked, name)[h]) for name in _HOP_TABLES)
+            tables = tuple(_i32(a).to(device) for a in host)
+            if device.type == "cuda":
+                prepare_optable(tables, stacked.num_regs, host)
+            hops.append(tables)
+        hops = _STACKED_CACHE[key] = tuple(hops)
+    return hops
+
+
+def run_hops_scanned(
+    stacked: lowering.StackedHops, regs: torch.Tensor, *, backend: str = "jnp"
+) -> torch.Tensor:
+    """Run a :class:`~repro_torch.dataplane.lowering.StackedHops` chain over
+    parsed register files, hop after hop.
+
+    The reference scans one ``optable_run`` over the hop axis; here each hop
+    is one ``optable_run`` over its padded plane of the stack, which is that
+    scan unrolled, so bit-exact with it and with :func:`run_hop` per hop
+    slice (pad elements write 0 into the null register, which stays 0).
+    """
+    if resolve_backend(backend) == "packed":
+        raise ValueError(
+            "the packed backend scans layers, not register-file hops "
+            "(see execute(..., scan_hops=True))"
+        )
+    if regs.shape[0] != stacked.num_regs:
+        raise ValueError(f"register file has {regs.shape[0]} registers, the hops {stacked.num_regs}")
+    for tables in _stacked_tables(stacked, regs.device):
+        regs = optable_run(regs, *tables)
+    return regs
 
 
 def _run_chunk(

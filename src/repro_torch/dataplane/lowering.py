@@ -394,8 +394,94 @@ class LoweredProgram:
 
 
 # ---------------------------------------------------------------------------
-# Stacked execution plan (scan-over-layers)
+# Stacked execution plans (scan-over-hops / scan-over-layers)
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class StackedHops:
+    """Fabric-hop tables stacked on a leading hop axis.
+
+    The executor runs every hop on one register file, one ``optable_run``
+    per hop over this stack's equal-shaped planes
+    (``executor.run_hops_scanned``) — the scan-over-layers idiom applied to
+    switch chains.  Hops shorter than ``elements_per_hop`` are element-padded with whole
+    no-op elements (every row the standard pad row: ``SHR_AND`` writing 0 to
+    the null register), so padding can never change results, only waste
+    lanes.  Built by :func:`stack_hops`; ``None`` from there means the hop
+    shapes genuinely differ and callers must fall back to unrolled dispatch.
+    """
+
+    fingerprint: str
+    num_hops: int
+    elements_per_hop: int        # padded per-hop element count
+    num_regs: int
+    used: tuple[int, ...]        # union of per-hop used opcodes (+ pad op)
+
+    # (num_hops, elements_per_hop, max_rows) tables.
+    opcode: np.ndarray           # int32
+    dst: np.ndarray              # int32
+    src0: np.ndarray             # int32
+    src1: np.ndarray             # int32
+    imm0: np.ndarray             # uint32
+    imm1: np.ndarray             # uint32
+    mask: np.ndarray             # uint32
+    first_write: np.ndarray      # int32
+
+
+def stack_hops(hops: "list[LoweredProgram]") -> StackedHops | None:
+    """Stack fabric-hop table slices into one scan-compatible plan.
+
+    Returns ``None`` when the hops cannot share one compiled body: different
+    row widths or different register files (never the case for
+    ``slice_elements`` views of one program, always the case for slices of
+    *different* programs).  Differing element counts (the last hop of a
+    partition is short) are fine — short hops are padded with no-op
+    elements.
+    """
+    if not hops:
+        return None
+    head = hops[0]
+    if any(
+        h.max_rows != head.max_rows or h.num_regs != head.num_regs
+        for h in hops
+    ):
+        return None
+    e_pad = max(h.num_elements for h in hops)
+    null = head.null_slot
+    pads = {
+        "opcode": (np.int32, SHR_AND_IMM),
+        "dst": (np.int32, null),
+        "src0": (np.int32, null),
+        "src1": (np.int32, null),
+        "imm0": (np.uint32, 0),
+        "imm1": (np.uint32, 0),
+        "mask": (np.uint32, 0),
+        "first_write": (np.int32, 1),
+    }
+    stacked: dict[str, np.ndarray] = {}
+    for name, (dtype, fill) in pads.items():
+        planes = []
+        for h in hops:
+            a = np.asarray(getattr(h, name), dtype)
+            short = e_pad - a.shape[0]
+            if short:
+                a = np.concatenate(
+                    [a, np.full((short, a.shape[1]), fill, dtype)]
+                )
+            planes.append(a)
+        stacked[name] = np.stack(planes)
+    used: set[int] = {SHR_AND_IMM}  # pad elements/rows always evaluate
+    for h in hops:
+        used.update(h.used_opcodes())
+    return StackedHops(
+        fingerprint="stack(" + "+".join(h.fingerprint() for h in hops) + ")",
+        num_hops=len(hops),
+        elements_per_hop=e_pad,
+        num_regs=head.num_regs,
+        used=tuple(sorted(used)),
+        **stacked,
+    )
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class StackedPackedLayers:

@@ -1,0 +1,179 @@
+"""Typed execution plans: one entry point for the dataplane executors (the
+reference's ``dataplane/plan.py``).
+
+:class:`ExecutionPlan` gathers the *how* of a run into one frozen value and
+:func:`run` dispatches the *what* (a program or a fabric) with it::
+
+    from repro_torch.dataplane.plan import Backend, ExecutionPlan, run
+
+    out = run(program, packets, plan=ExecutionPlan(backend=Backend.PACKED))
+
+Dispatch is by program/stream type:
+
+* ``PipelineProgram`` / ``LoweredProgram`` + a 2-D packet array ->
+  ``executor.execute`` (returns the output bits);
+* ... + a chunk iterator -> ``executor.execute_stream`` (returns
+  :class:`~repro_torch.dataplane.executor.StreamResult`);
+* ``SwitchFabric`` -> ``fabric.run`` (hop-scanned when the plan allows);
+* ``Backend.INTERPRETER`` -> the per-op reference interpreter
+  (``core.interpreter.run_program``) — the correctness witness, only
+  reachable through :func:`run` (the executors never accept it).
+
+Not ported yet, and raising ``NotImplementedError``: any other program,
+such as the multi-tenant ``SwitchScheduler`` (ROADMAP Queue 1 item 7), and
+``plan.fleet`` (item 8), for a program or a fabric alike.  The reference's
+``devices`` (a fleet's sharding) and ``merged`` (the scheduler's table
+layout) come with those items.
+
+The keyword surfaces stay: every ``backend=`` string the executors accept
+still works, and ``executor.resolve_backend`` takes :class:`Backend`
+members alike.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class Backend(enum.Enum):
+    """Executor backend, replacing the stringly-typed ``backend=`` knob.
+
+    Values are the reference's strings, so ``Backend.FUSED.value`` is a
+    valid argument anywhere a string is accepted (and vice versa through
+    :meth:`coerce`).  ``FUSED`` and ``PALLAS`` both name the port's one
+    op-table path (the ``optable_run`` kernel on a card).
+    """
+
+    AUTO = "auto"
+    FUSED = "jnp"          # op-table path (alias: "fused")
+    PALLAS = "pallas"      # op-table path, as the reference's Pallas kernel
+    PACKED = "packed"      # bit-packed PHV XNOR+popcount
+    INTERPRETER = "interpreter"  # per-op reference (run() only)
+
+    @classmethod
+    def coerce(cls, value: "Backend | str") -> "Backend":
+        """Accept a :class:`Backend`, its value, or a legacy alias."""
+        if isinstance(value, cls):
+            return value
+        if isinstance(value, str):
+            alias = _ALIASES.get(value.lower())
+            if alias is not None:
+                return alias
+        raise ValueError(
+            f"unknown backend {value!r}; expected one of "
+            f"{sorted(_ALIASES)} or a Backend member"
+        )
+
+
+_ALIASES: dict[str, Backend] = {
+    **{b.value: b for b in Backend},
+    "fused": Backend.FUSED,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """Everything about *how* to run a program, in one frozen value.
+
+    ``backend``     executor backend (:class:`Backend` or legacy string).
+    ``chunk_size``  packets per device dispatch (None -> executor default).
+    ``interpret``   kept for the reference's surface and ignored: the port
+                    has no interpreter mode (a kernel runs on a CUDA tensor,
+                    its plain version on a CPU tensor).
+    ``scan_hops``   fabric hop execution: True -> the stacked hop tables
+                    (``executor.run_hops_scanned``), False -> unrolled
+                    per-hop dispatch, None -> stacked whenever the hops
+                    stack (same row/register shapes; they always do for
+                    slices of one program).
+    ``fleet``       batch this many independent streams (not ported yet:
+                    any run with it set raises, ROADMAP Queue 1 item 8).
+    ``collect``     keep outputs (streaming paths default to stats-only).
+    """
+
+    backend: Backend | str = Backend.AUTO
+    chunk_size: int | None = None
+    interpret: bool | None = None
+    scan_hops: bool | None = None
+    fleet: int | None = None
+    collect: bool = False
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "backend", Backend.coerce(self.backend))
+        if self.chunk_size is not None and self.chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
+        if self.fleet is not None and self.fleet < 1:
+            raise ValueError(f"fleet must be >= 1, got {self.fleet}")
+
+    @property
+    def backend_str(self) -> str:
+        """The legacy string the executor keyword surface expects."""
+        return self.backend.value
+
+
+_SCHEDULER = "the multi-tenant SwitchScheduler is not ported yet (ROADMAP Queue 1 item 7)"
+_FLEET = "fleet plans are not ported yet (ROADMAP Queue 1 item 8)"
+
+
+def refuse_fleet(plan: ExecutionPlan | None) -> None:
+    """Raise ``NotImplementedError`` when ``plan`` asks for a fleet."""
+    if plan is not None and plan.fleet is not None:
+        raise NotImplementedError(_FLEET)
+
+
+def run(program, stream, *, plan: ExecutionPlan | None = None, device="cuda"):
+    """Execute ``stream`` through ``program`` according to ``plan``, on
+    ``device``.
+
+    See the module docstring for the dispatch table.  ``stream`` may be a
+    ``(batch, input_bits)`` {0,1} array or an iterator of such chunks.
+    """
+    import numpy as np
+
+    from repro_torch.core.interpreter import run_program
+    from repro_torch.core.pipeline import PipelineProgram
+    from repro_torch.dataplane import executor as _executor
+    from repro_torch.dataplane import fabric as _fabric
+    from repro_torch.dataplane.lowering import LoweredProgram, lower_program
+
+    plan = plan or ExecutionPlan()
+    refuse_fleet(plan)
+
+    if isinstance(program, _fabric.SwitchFabric):
+        if plan.backend is Backend.INTERPRETER:
+            raise ValueError("the interpreter backend has no fabric form")
+        return program.run(stream, plan=plan, device=device)
+
+    if not isinstance(program, (PipelineProgram, LoweredProgram)):
+        raise NotImplementedError(f"run() of a {type(program).__name__}: {_SCHEDULER}")
+
+    if plan.backend is Backend.INTERPRETER:
+        if isinstance(program, LoweredProgram):
+            raise ValueError(
+                "the interpreter runs source PipelinePrograms; pass the "
+                "un-lowered program for Backend.INTERPRETER"
+            )
+        return run_program(program, np.asarray(stream), device=device).cpu().numpy()
+
+    lowered = (
+        program
+        if isinstance(program, LoweredProgram)
+        else lower_program(program)
+    )
+
+    if hasattr(stream, "ndim") and getattr(stream, "ndim", 0) == 2:
+        return _executor.execute(
+            lowered,
+            stream,
+            backend=plan.backend_str,
+            chunk_size=plan.chunk_size,
+            device=device,
+        )
+
+    return _executor.execute_stream(
+        lowered,
+        stream,
+        backend=plan.backend_str,
+        chunk_size=plan.chunk_size or _executor.DEFAULT_CHUNK,
+        collect=plan.collect,
+        device=device,
+    )

@@ -96,6 +96,7 @@ def _pack(x: torch.Tensor, thr: int, wrapper) -> torch.Tensor:
         return pack_ge_plain(x, thr)
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on CPU or CUDA tensors, got {x.device}")
+    _build.refuse_grad(what, x)
     x = x.contiguous()
     m, n = x.shape
     out = torch.empty((m, num_words(n)), dtype=torch.int32, device=x.device)

@@ -81,6 +81,7 @@ def bnn_matmul_packed(
         return bnn_matmul_packed_ref(x_packed, w_packed, k_bits)
     if x_packed.device.type != "cuda":
         raise ValueError(f"bnn_matmul_packed runs on CPU or CUDA tensors, got {x_packed.device}")
+    _build.refuse_grad("bnn_matmul_packed", x_packed, w_packed)
     if m > _MAX_ROWS or kw >= 1 << 25:
         raise ValueError(f"M={m} or Kw={kw} is beyond the kernel's grid")
     x_packed, w_packed = x_packed.contiguous(), w_packed.contiguous()

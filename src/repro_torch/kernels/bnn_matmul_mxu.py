@@ -77,6 +77,7 @@ def bnn_matmul_mxu(x: torch.Tensor, w: torch.Tensor, *, binarize_x: bool = True)
         return bnn_matmul_mxu_plain(x, w, binarize_x=binarize_x)
     if x.device.type != "cuda":
         raise ValueError(f"bnn_matmul_mxu runs on CPU or CUDA tensors, got {x.device}")
+    _build.refuse_grad("bnn_matmul_mxu", x, w)
     if m > _MAX_ROWS:
         raise ValueError(f"M={m} is beyond the kernel's grid")
     x, w = x.contiguous(), w.contiguous()

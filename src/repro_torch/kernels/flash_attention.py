@@ -96,6 +96,7 @@ def flash_attention(
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, got {q.device}")
+    _build.refuse_grad("flash_attention", q, k, v)
     if not 1 <= d <= MAX_HEAD_DIM or bh > _MAX_BH:
         raise ValueError(f"head dim {d} (1..{MAX_HEAD_DIM}) or BH={bh} beyond the kernel")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

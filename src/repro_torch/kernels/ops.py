@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bitops
+from repro_torch.core.bnn import binarize_ste
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bitpack import DTYPES, WORD, bitpack, pack_bits_words
 from repro_torch.kernels.bnn_matmul import bnn_matmul_packed
@@ -87,21 +88,9 @@ def binary_matmul(x: torch.Tensor, w: torch.Tensor, *, implementation: str = "au
 # Straight-through estimator — the only custom-gradient primitive.
 # ---------------------------------------------------------------------------
 
-class _SteSign(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, v):
-        ctx.save_for_backward(v)
-        return _ref.sign(v, v.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        (v,) = ctx.saved_tensors
-        return g * (v.abs() <= 1.0).to(g.dtype)
-
-
-def ste_sign(v: torch.Tensor) -> torch.Tensor:
-    """sign(v) in ±1 with straight-through gradient (clipped at |v|<=1)."""
-    return _SteSign.apply(v)
+# sign(v) in ±1 with straight-through gradient (clipped at |v|<=1): the
+# reference's name here for ``core.bnn.binarize_ste``, the one STE primitive.
+ste_sign = binarize_ste
 
 
 def binary_dense_train(x: torch.Tensor, w_latent: torch.Tensor, *, scale: str = "weight_only") -> torch.Tensor:

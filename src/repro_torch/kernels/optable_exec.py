@@ -265,6 +265,7 @@ def optable_run(
         return optable_run_plain(regs, *tables)
     if regs.device.type != "cuda":
         raise ValueError(f"optable_run runs on CPU or CUDA tensors, got {regs.device}")
+    _build.refuse_grad("optable_run", regs, *tables)
     num_regs, batch = regs.shape
     plan, records = prepare(tables, num_regs)
     regs = regs.contiguous()

@@ -88,6 +88,7 @@ def packed_layer(
         return packed_layer_plain(words, weights, mask, thresholds)
     if words.device.type != "cuda":
         raise ValueError(f"packed_layer runs on CPU or CUDA tensors, got {words.device}")
+    _build.refuse_grad("packed_layer", words, weights, mask, thresholds)
     n_out, n_words = weights.shape
     words, weights, mask, thresholds = (
         t.contiguous() for t in (words, weights, mask, thresholds)

@@ -93,19 +93,24 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward (eval / scoring).
+    """Full-sequence forward (train / eval / scoring).
 
     batch: {"tokens": (B, S)}.  Returns (logits (B, S, V) f32, aux loss 0).
+    Differentiable, as the reference's training forward is: gradients reach
+    every parameter that requires them, through ``ste_sign`` in the
+    ``bnn_weight_only``/``bnn_xnor`` modes.  On the CPU that is the plain
+    PyTorch path; a CUDA kernel has no backward yet, so on a card a kernel
+    reached under grad raises (ROADMAP Queue 1 item 18).  Scoring callers
+    run it under ``torch.inference_mode()``.
     """
     _check_family(cfg)
     h = embed(params["embed"], batch["tokens"], cfg.param_dtype())
     b, s, _ = h.shape
     positions = _positions(b, s, 0, h.device)
-    with torch.no_grad():
-        for lp in params["layers"]:
-            h, _ = _attn_block(lp, h, cfg, positions, None, None, not cfg.encoder_only)
-        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-        logits = unembed(params["embed"], h)
+    for lp in params["layers"]:
+        h, _ = _attn_block(lp, h, cfg, positions, None, None, not cfg.encoder_only)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    logits = unembed(params["embed"], h)
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
 

@@ -49,6 +49,7 @@ def _busy_us(events) -> float:
     return busy
 
 
+@torch.inference_mode()  # serving records no autograd graph
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5, help="decode steps to trace")

@@ -10,6 +10,10 @@ a prompt sets it to the largest slot position seen (``_install``), and a
 shorter slot attends over its zero-padded positions.  This approximation is
 kept so that the tokens equal the reference's.
 
+Prefill and decode steps run under ``torch.inference_mode()``: serving
+records no autograd graph (``models.forward`` is differentiable, and the
+kernels refuse inputs that require grad in grad mode).
+
 The engine also keeps its own clock: ``prefill_seconds`` and
 ``decode_seconds`` (host time of each call up to its sampled tokens on the
 host, which waits for the device), ``decode_steps`` and ``decode_tokens``.
@@ -95,6 +99,7 @@ class Engine:
 
     # -- internals ---------------------------------------------------------
 
+    @torch.inference_mode()
     def _admit(self) -> None:
         for slot in range(self.max_batch):
             if self.slots[slot] is not None or not self.queue:
@@ -127,6 +132,7 @@ class Engine:
         # one index for every slot: the largest position (see module doc)
         self.cache = _set_index(self.cache, int(max(self.slot_pos.max(), prompt_len)))
 
+    @torch.inference_mode()
     def _step(self) -> None:
         t0 = time.perf_counter()
         tokens = torch.as_tensor(self.last_token.astype(np.int64), device=self.device)

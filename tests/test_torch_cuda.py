@@ -580,3 +580,122 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """A kernel called through ctypes returns a tensor with no grad_fn, so
+    under grad mode each wrapper refuses an input that requires grad instead
+    of cutting the graph; without grad it launches.  The model's forward on
+    the card therefore raises in grad mode and runs under inference_mode."""
+    from repro_torch import models
+
+    x = torch.randn((8, 64), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="item 18"):
+        bitpack.bitpack(x)
+    q = torch.randn((2, 40, 16), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="item 18"):
+        flash_attention.flash_attention(q, q.detach(), q.detach())
+    with pytest.raises(RuntimeError, match="item 18"):
+        bnn_matmul_mxu.bnn_matmul_mxu(x, torch.ones((64, 8), dtype=torch.bfloat16, device=cuda))
+    with torch.no_grad():
+        assert torch.equal(bitpack.bitpack(x), bitpack.pack_ge_plain(x.detach(), 0))
+    cfg = _tiny_lm(quant=QuantConfig(mode="bnn_packed"), attn_impl="pallas_flash")
+    params = _to(models.init_params(cfg, 0, device="cpu"), cuda)
+    params["embed"]["table"].requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 97, (2, 33))).to(cuda)
+    with pytest.raises(RuntimeError, match="item 18"):
+        models.forward(params, {"tokens": tokens}, cfg)
+    with torch.inference_mode():
+        logits, _ = models.forward(params, {"tokens": tokens}, cfg)
+    assert torch.isfinite(logits).all()
+
+
+def _five_tuple_fabric(mode="multi_hop"):
+    from repro_torch.configs.n2net_paper import FIVE_TUPLE
+    from repro_torch.core import bnn
+    from repro_torch.dataplane.fabric import SwitchFabric
+
+    params = bnn.init_params(FIVE_TUPLE, torch.Generator().manual_seed(1))
+    prog = compiler.compile_bnn([w.numpy() for w in params], pipeline.RMT)
+    return SwitchFabric.partition(prog, mode=mode)
+
+
+def test_optable_on_stacked_hops_with_whole_pad_elements(cuda):
+    """FIVE_TUPLE's hops of 32, 32, 32 and 26 elements stacked: the last
+    hop's 6 whole pad elements have no true row.  Each hop's kernel launch
+    on its plane equals the plain version, with a nonzero incoming null
+    register."""
+    fab = _five_tuple_fabric()
+    stacked = fab.stacked_hops()
+    assert [b - a for a, b in (h.element_range for h in fab.hops)] == [32, 32, 32, 26]
+    rng = np.random.default_rng(8)
+    regs = rng.integers(0, 1 << 32, (stacked.num_regs, 777), dtype=np.uint64)
+    regs[-1] = 0xBEEF
+    regs = bitops.u32_to_i32(torch.from_numpy(regs.astype(np.int64))).to(cuda)
+    for tables in executor._stacked_tables(stacked, cuda):
+        before = optable_exec.optable_run.launches
+        out = optable_exec.optable_run(regs, *tables)
+        assert optable_exec.optable_run.launches == before + 1
+        assert torch.equal(out, optable_exec.optable_run_plain(regs, *tables))
+        regs = out
+    pads = executor._stacked_tables(stacked, cuda)[-1]
+    plan, _ = optable_exec.prepare(pads, stacked.num_regs)
+    assert (plan.rows[26:] == 0).all() and (plan.zero_reg[26:] == stacked.num_regs - 1).all()
+
+
+@pytest.mark.parametrize("mode", ["multi_hop", "recirculate"])
+def test_fabric_five_tuple_paths_agree_on_cuda(cuda, mode):
+    fab = _five_tuple_fabric(mode)
+    assert fab.num_hops == 4
+    packets = traffic.generate("ddos_burst", 10_000, 128, seed=4)
+    want = executor.execute(fab.lowered, packets, chunk_size=4096)
+    before = optable_exec.optable_run.launches
+    scanned = fab.run(packets, scan_hops=True, chunk_size=4096)
+    assert optable_exec.optable_run.launches - before == fab.num_hops * (3 + 1)
+    unrolled = fab.run(packets, scan_hops=False, chunk_size=4096)
+    packed = fab.run(packets, backend="packed", chunk_size=4096)
+    for res in (scanned, unrolled, packed):
+        np.testing.assert_array_equal(res.outputs, want)
+    assert scanned.scanned and not unrolled.scanned and packed.scanned
+    np.testing.assert_array_equal(want[:300], fab.run(packets[:300], scan_hops=True, device="cpu").outputs)
+
+
+def test_bnn_trainer_step_on_cuda_matches_cpu(cuda):
+    """One trainer step on the card against the same step on the CPU, from
+    the same seed (the initial latent is drawn on the CPU, so it is the
+    same), with float32 products throughout (no TF32).
+
+    Loss, accuracy and gradient norm agree within the CPU parity tests'
+    rtol 1e-5, and the deployed bits exactly.  The moments agree within
+    1e-5 of each tensor's largest magnitude: cuBLAS and the CPU sum a
+    gradient element's 512 batch terms in other orders, each within
+    float32 rounding of the exact sum.  The latent agrees within rtol 1e-5, atol 1e-6
+    wherever the gradient is at least 100 times AdamW's eps; the first step
+    moves a weight by lr * g / (|g| + eps), so where |g| is within a
+    hundred eps (1e-8) that rounding of g moves the step by up to a
+    percent, and those weights are held to 1e-2 * lr."""
+    from repro_torch.train.bnn_trainer import BnnTrainConfig, BnnTrainer
+
+    cfg = BnnTrainConfig(layer_sizes=(32, 128, 64, 1), steps=1, batch=512,
+                         train_packets_per_class=2048, eval_packets_per_class=500)
+    cpu = BnnTrainer(cfg, device="cpu")
+    gpu = BnnTrainer(cfg, device=cuda)
+    for a, b in zip(gpu.latent, cpu.latent):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    torch.backends.cuda.matmul.allow_tf32 = True  # the trainer turns it off for its steps
+    try:
+        cpu.train()
+        gpu.train()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for key in ("loss", "accuracy", "grad_norm"):
+        np.testing.assert_allclose(gpu.history[-1][key], cpu.history[-1][key], rtol=1e-5, atol=1e-6)
+    for a, b in zip(gpu.opt_state.m + gpu.opt_state.v, cpu.opt_state.m + cpu.opt_state.v):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+    opt = cpu.optimizer
+    for a, b, m in zip(gpu.latent, cpu.latent, cpu.opt_state.m):
+        firm = m.abs() / (1 - opt.b1) >= 100 * opt.eps  # |g| (times the clip scale)
+        assert firm.float().mean() > 0.9
+        torch.testing.assert_close(a.cpu()[firm], b[firm], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(a.cpu()[~firm], b[~firm], rtol=0, atol=1e-2 * opt.lr)
+    np.testing.assert_array_equal(gpu.forward_bits(cpu.eval_x), cpu.forward_bits(cpu.eval_x))

@@ -237,6 +237,52 @@ def test_forward_matches_reference(model):
     _close(got, want, 1e-4)
 
 
+def test_forward_gradients_match_reference_grad():
+    """``forward`` is the training forward, as the reference's: gradients of
+    a two-layer phi3-shaped ``bnn_weight_only`` model (straight-through
+    ``ste_sign`` in every projection) against ``jax.grad`` of the
+    reference's ``forward``, leaf by leaf.  Tolerance 1e-4 of each
+    gradient's largest magnitude: the float32 rounding that ``_close``
+    allows the logits, carried back through two layers (measured gap about
+    2e-5)."""
+    jcfg, tcfg, jp, tp = _model("bnn_weight_only")
+    tokens = np.random.default_rng(8).integers(0, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    cot = np.random.default_rng(9).standard_normal((2, 12, jcfg.vocab_size)).astype(np.float32)
+
+    def jloss(p):
+        logits, _ = jm.forward(p, {"tokens": jnp.asarray(tokens)}, jcfg)
+        return jnp.sum(logits * cot)
+
+    want = jax.jit(jax.grad(jloss))(jp)
+    leaves = {}
+
+    def grad_leaf(path, t):
+        leaves[path] = t.detach().clone().requires_grad_(True)
+        return leaves[path]
+
+    def walk(node, path=()):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        return grad_leaf(path, node)
+
+    params = walk(tp)
+    logits, _ = tm.forward(params, {"tokens": torch.from_numpy(tokens).long()}, tcfg)
+    assert logits.requires_grad
+    (logits * torch.from_numpy(cot)).sum().backward()
+    for path, leaf in leaves.items():
+        stacked = path[0] == "layers"  # the reference stacks layers on a leading axis
+        node = want["layers"] if stacked else want
+        for key in path[2:] if stacked else path:
+            node = node[key]
+        g = np.asarray(node)[path[1]] if stacked else np.asarray(node)
+        assert leaf.grad is not None, path
+        scale = float(np.abs(g).max())
+        assert scale > 0, path
+        np.testing.assert_allclose(leaf.grad.numpy(), g, rtol=0, atol=1e-4 * scale, err_msg=str(path))
+
+
 def test_forward_with_flash_matches_reference_xla(model):
     """``attn_impl="pallas_flash"`` runs the flash kernel's path; its logits
     match the reference's plain chunked attention."""

@@ -10,6 +10,8 @@ is held against the plain version on a card by ``tests/test_torch_cuda.py``.
 """
 from __future__ import annotations
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -169,6 +171,35 @@ def test_planned_schedule_matches_plain_and_pallas_on_random_programs(case):
     got = run_planned(_plan(lp), regs)
     np.testing.assert_array_equal(got, _plain(lp, regs))
     np.testing.assert_array_equal(got, _pallas(lp, regs))
+
+
+def test_stacked_hops_with_whole_pad_elements():
+    """FIVE_TUPLE on the RMT chip partitions into hops of 32, 32, 32 and 26
+    elements, and ``stack_hops`` pads the last hop with 6 whole pad elements
+    (every row ``SHR_AND_IMM`` into the null register, mask 0, first_write
+    1).  Their plan has no true rows and zeroes the null register; hop by
+    hop the planned schedule equals the plain version (and Pallas on the
+    padded hop), and the chain equals the unsliced program."""
+    lp = PAPER["FIVE_TUPLE/rmt"]()
+    hops = [lp.slice_elements(a, min(a + 32, lp.num_elements)) for a in range(0, lp.num_elements, 32)]
+    assert [h.num_elements for h in hops] == [32, 32, 32, 26]
+    stacked = tlow.stack_hops(hops)
+    regs = _regs(lp.num_regs, 5, seed=11)
+    regs[-1] = 0xBEEF  # a nonzero incoming null register
+    state = regs
+    for h in range(stacked.num_hops):
+        plane = types.SimpleNamespace(**{n: getattr(stacked, n)[h] for n in TABLES})
+        plan = topt.make_plan(*(getattr(plane, n) for n in TABLES), stacked.num_regs)
+        got = run_planned(plan, state)
+        np.testing.assert_array_equal(got, _plain(plane, state))
+        if h == stacked.num_hops - 1:
+            np.testing.assert_array_equal(plan.rows[26:], 0)
+            np.testing.assert_array_equal(plan.zero_reg[26:], lp.null_slot)
+            assert not plan.deferred[26:].any()
+            np.testing.assert_array_equal(plan.records[26:, 0:2], 0)  # no records, nothing deferred
+            np.testing.assert_array_equal(got, _pallas(plane, state))
+        state = got
+    np.testing.assert_array_equal(state, _plain(lp, regs))
 
 
 def _hand_tables(elements, num_regs):
