@@ -44,7 +44,29 @@ What it does, in order:
    accuracy, exports, and ``verify_roundtrip`` over a 5-hop ``multi_hop``
    fabric (op-table and packed backends) finds no packet where the oracle,
    the executor, the fabric and the trainer's own forward bits disagree;
-7. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
+7. multi-tenant switch scheduling (``SwitchScheduler``), on the tenant pool
+   of ``benchmarks/multitenant_bench.py`` (six BNN shapes repeated, weights
+   from fixed seeds, the shared chip sized as there), 2**20 mixed packets
+   arriving in chunks of 1024 (``quantum`` 1024):
+   a. 8 tenants in ``merged``/``interleave``, ``merged``/``concat`` and
+      ``time_sliced``, each on the packed and the op-table backend; 128
+      tenants in ``merged``/``interleave`` on the packed backend (the
+      per-tenant ``packed_layer_routed`` kernel).  Every tenant's served
+      packets are bit-exact with its own ``executor.execute`` on the card,
+      and on the first chunk with the interpreter and the BNN oracle; per
+      tenant ``packets == served + dropped`` with no drop; each run's
+      launches are counted from zero and must be the ones its path makes;
+   b. 32 tenants in ``merged``/``interleave`` on the op-table backend must
+      raise the ``ValueError`` of the op-table kernel's shared memory (1,833
+      registers);
+   c. three tenants, one replaying a synthetic capture written as pcap and
+      pcapng and read back, in ``merged`` and ``time_sliced`` on both
+      backends; the capture tenant is bit-exact with its BNN oracle.
+   Before the runs, ``packed_layer_routed`` is held against its plain version
+   on the 8- and 128-tenant stacks at chunks of 1024 and 32768 (and timed
+   there as a replayed graph of 16 chunks), ``optable_run`` and
+   ``packed_layer`` on the 8-tenant merged tables;
+8. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
    fixed seed):
    a. holds ``bnn_matmul_packed`` (bit for bit, at the decode and prefill
       shapes of the model's three projection shapes, on the stream and the
@@ -70,7 +92,7 @@ What it does, in order:
       ``attn_impl="pallas_flash"`` (one ``flash_attention`` launch per
       layer, every one on the tma route), and holds a 2-layer float32
       copy's flash logits against its plain-attention logits;
-8. prints one JSON line of per-kernel numbers, then the status line.  The
+9. prints one JSON line of per-kernel numbers, then the status line.  The
    packet kernels' ``launches`` sum their ``launches_by_path``.
 
 Every path is driven with all launch counts zeroed just before it and read
@@ -97,8 +119,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs.n2net_paper import FIVE_TUPLE, HEADLINE  # noqa: E402
 from repro_torch.core import bitops, bnn, compiler, interpreter  # noqa: E402
 from repro_torch.core.export import verify_roundtrip  # noqa: E402
-from repro_torch.core.pipeline import RMT, RMT_NATIVE_POPCNT  # noqa: E402
-from repro_torch.dataplane import executor, lowering, traffic  # noqa: E402
+from repro_torch.core.pipeline import MAX_FIELDS, RMT, RMT_NATIVE_POPCNT, ChipSpec  # noqa: E402
+from repro_torch.dataplane import executor, lowering, pcap, traffic  # noqa: E402
+from repro_torch.dataplane.multitenant import SwitchScheduler  # noqa: E402
 from repro_torch.dataplane.fabric import MODES, SwitchFabric  # noqa: E402
 from repro_torch.kernels import _build, bitpack, optable_exec, packed_layer  # noqa: E402
 from repro_torch import models  # noqa: E402
@@ -133,6 +156,22 @@ BF16_TENSOR_FLOPS = 989e12
 FABRIC_HOPS = 4        # FIVE_TUPLE's 122 elements on the 32-element RMT chip
 TRAIN_HOPS = 5         # the trainer's default model: 159 elements
 TRAIN_MIN_ACCURACY = 0.90  # the gate of examples/train_deploy_loop.py
+
+# Multi-tenant scheduling: benchmarks/multitenant_bench.py's tenant pool
+# (:44-47) and operating point (chunk and quantum 1024, :75-79).
+MT_PACKETS = 1 << 20
+MT_CHUNK = 1 << 10
+MT_SHAPES = ((32, 64, 32), (16, 32, 8), (32, 16), (8, 12, 6), (16, 8, 4), (32, 32, 4))
+MT_SCENARIOS = ("ddos_burst", "iot_telemetry", "flow_tuple", "adversarial_bitflip", "uniform_random")
+MT_WEIGHTS = (3.0, 2.0, 1.0, 1.0, 2.0, 1.0)
+MT_WIDE = 128        # tenants of the widest interleaved packed run
+MT_OVER = 32         # tenants whose merged register file overflows the op-table kernel
+MT_OVER_REGS = 1833
+# examples/pcap_replay.py section 5: a 20,000-packet capture as one tenant of
+# three, twice its length served in chunks of 4096.
+PCAP_PACKETS = 20_000
+PCAP_CHUNK = 4096
+PCAP_SCENARIO = "pcap:chip_smoke"
 
 LM_ARCH = "phi3-mini-3.8b"
 LM_REQUESTS = 8
@@ -216,7 +255,7 @@ def check_optable(dev, programs: dict) -> dict:
         t = executor._device_tables(lowered, dev)
         regs = executor.parse_packets(packets, *t.io[:2], num_regs=lowered.num_regs)
         plan, _ = optable_exec.prepare((*t.ops, t.first_write), lowered.num_regs)
-        threads = optable_exec.block_threads(lowered.num_regs, plan.max_deferred, 32 * plan.stride)
+        threads = optable_exec.plan_threads(plan, lowered.num_regs)
         err = max(err, same(
             f"optable_run {label} ({lowered.num_regs} regs x {CHUNK} packets, {int(plan.rows.sum())} "
             f"true rows of {lowered.opcode.size}, {int(plan.deferred.sum())} deferred, scratch "
@@ -603,6 +642,288 @@ def drive_train_deploy(dev, records: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Multi-tenant switch scheduling
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TenantPool:
+    """Tenants' weights (the oracle's), programs and traffic specs, and the
+    shared chip that admits all of them in either merged layout."""
+
+    params: list
+    progs: list
+    specs: list
+    chip: ChipSpec
+
+
+def tenant_pool(count: int, shapes=MT_SHAPES, scenarios=MT_SCENARIOS, weights=MT_WEIGHTS,
+                seed: int = SEED) -> TenantPool:
+    """Tenant i: shape, scenario and weight by i (benchmarks/
+    multitenant_bench.py:44-60), weights from ``bnn.init_params`` with
+    generator seed ``seed + i``; the chip sized as at :85-93."""
+    params, progs, specs = [], [], []
+    for i in range(count):
+        shape = shapes[i % len(shapes)]
+        p = bnn.init_params(bnn.BnnSpec(shape), torch.Generator().manual_seed(seed + i))
+        params.append(p)
+        progs.append(compiler.compile_bnn([w.numpy() for w in p]))
+        specs.append(traffic.TenantTrafficSpec(scenarios[i % len(scenarios)], shape[0],
+                                               weights[i % len(weights)]))
+    chip = ChipSpec(
+        num_elements=sum(p.num_elements for p in progs) + 1,
+        phv_bits=sum(p.peak_phv_bits for p in progs),
+        max_parallel_ops=max(MAX_FIELDS, lowering.peak_stage_rows([lowering.lower_program(p) for p in progs])),
+        name="shared",
+    )
+    return TenantPool(params, progs, specs, chip)
+
+
+def scheduler(pool: TenantPool, **kw) -> SwitchScheduler:
+    sched = SwitchScheduler(pool.chip, **kw)
+    for i, (prog, spec) in enumerate(zip(pool.progs, pool.specs)):
+        sched.admit(prog, name=f"t{i}", weight=spec.weight)
+    return sched
+
+
+def arrivals(tids: np.ndarray, bits: np.ndarray, chunk: int):
+    """The mixed stream as it arrives: chunks of ``chunk`` packets."""
+    return ((tids[i:i + chunk], bits[i:i + chunk]) for i in range(0, len(tids), chunk))
+
+
+def tenant_wants(dev, pool: TenantPool, tids, bits, first: int) -> list:
+    """Each tenant's outputs from its own ``executor.execute`` on the card;
+    on its packets among the first ``first`` they must also be the
+    interpreter's and the BNN oracle's."""
+    wants = []
+    for t, (prog, p) in enumerate(zip(pool.progs, pool.params)):
+        mine = bits[tids == t, :prog.input_bits]
+        want = executor.execute(prog.lower(), mine, chunk_size=CHUNK, device=dev)
+        head = torch.from_numpy(np.ascontiguousarray(bits[:first][tids[:first] == t, :prog.input_bits])).to(dev)
+        k = head.shape[0]
+        if k:
+            witness = interpreter.run_program(prog, head, device=dev).cpu().numpy()
+            oracle = bnn.forward([w.to(dev) for w in p], head).cpu().numpy()
+            if not (np.array_equal(want[:k], witness) and np.array_equal(witness, oracle)):
+                raise AssertionError(f"tenant {t}: execute, run_program and bnn.forward disagree on "
+                                     f"its {k} packets of the first chunk")
+        wants.append(want)
+    return wants
+
+
+def expected_launches(sched: SwitchScheduler, res, backend: str, layout) -> dict:
+    """The launches a scheduler run's path makes: per merged chunk (plus the
+    warm call), or per time-sliced turn (plus each tenant's warm call)."""
+    if res.mode == "merged":
+        runs = res.chunks + 1
+        if backend == "jnp":
+            return {"optable_run": runs}
+        if layout == "interleave":
+            depth = len(executor.stack_tenant_layers([t.lowered for t in sched.tenants]))
+            return {"pack_bits_words": depth * runs, "packed_layer_routed": depth * runs}
+        layers = sched.merged(layout).lowered.packed.layers
+        trivial = sum(executor._trivial_layout(pl) for pl in layers)
+        return {k: v for k, v in (("pack_bits_words", trivial * runs), ("packed_layer", len(layers) * runs)) if v}
+    turns = {t.tid: res.stats_for(t.tid).slices + 1 for t in sched.tenants if res.stats_for(t.tid).slices}
+    if backend == "jnp":
+        return {"optable_run": sum(turns.values())}
+    n = sum(len(sched.tenants[t].lowered.packed.layers) * k for t, k in turns.items())
+    return {"pack_bits_words": n, "packed_layer": n}
+
+
+def serve(dev, label: str, sched: SwitchScheduler, tids, bits, wants, records: dict, *, mode, layout,
+          backend, chunk=MT_CHUNK):
+    """One scheduler run with every launch count zeroed just before and read
+    just after; holds each tenant to ``wants`` and to conservation."""
+    torch.cuda.synchronize()
+    zero_counts()
+    res = sched.run(arrivals(tids, bits, chunk), mode=mode, merged=layout, backend=backend,
+                    chunk_size=chunk, device=dev)
+    launches = read_counts()
+    expect = expected_launches(sched, res, backend, layout)
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+    for st in res.tenants:
+        if st.packets != st.served + st.dropped or st.dropped or st.packets != int((tids == st.tid).sum()):
+            raise AssertionError(f"{label} tenant {st.tid}: {st.packets} arrived, {st.served} served, "
+                                 f"{st.dropped} dropped")
+        if wants is not None and not np.array_equal(res.outputs_for(st.tid), wants[st.tid]):
+            bad = int((res.outputs_for(st.tid) != wants[st.tid]).any(axis=1).sum())
+            raise AssertionError(f"{label} tenant {st.tid}: {bad} packets disagree with its own execute")
+    count_path(records, label, launches)
+    dispatches = res.chunks if res.mode == "merged" else sum(st.slices for st in res.tenants)
+    pps = [st.packets_per_second for st in res.tenants]
+    print(f"{label}: {res.packets} packets, {len(res.tenants)} tenants, {res.seconds} s -> "
+          f"{res.packets_per_second} pkt/s; per tenant min {min(pps)} max {max(pps)} pkt/s; "
+          f"{dispatches} dispatches, {1e6 * res.seconds / dispatches} us per dispatch; warm-up "
+          f"{res.warmup_seconds} s; launches {launches}")
+    return res
+
+
+def check_merged_kernels(dev, sched: SwitchScheduler, tids, bits, records: dict) -> None:
+    """``optable_run`` on each merged layout's tables over one chunk's
+    routed registers, and ``packed_layer`` on the block-diagonal merged
+    layers (words scattered from the routed bits), each against its plain
+    version.  Not counted as main-path launches."""
+    idx = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(dev)  # noqa: E731
+    d_tids, d_bits = torch.from_numpy(tids).to(dev), torch.from_numpy(bits).to(dev)
+    for layout in ("interleave", "concat"):
+        mp = sched.merged(layout)
+        lp = mp.lowered
+        regs = executor.parse_packets_routed(d_bits, d_tids, idx(mp.in_slot), idx(mp.in_shift),
+                                             idx(mp.in_valid), num_regs=lp.num_regs)
+        t = executor._device_tables(lp, dev)
+        plan, _ = optable_exec.prepare((*t.ops, t.first_write), lp.num_regs)
+        err = same(f"optable_run merged {layout} ({lp.num_regs} regs, {lp.opcode.shape} table, scratch "
+                   f"{plan.max_deferred}, {optable_exec.plan_threads(plan, lp.num_regs)} threads/block, "
+                   f"{len(tids)} packets)",
+                   optable_exec.optable_run(regs, *t.ops, t.first_write),
+                   optable_exec.optable_run_plain(regs, *t.ops, t.first_write))
+        records["optable_run"]["max_abs_err"] = max(records["optable_run"]["max_abs_err"], err)
+        h = executor.route_bits_in(d_bits, d_tids, idx(mp.packed_in_bit), idx(mp.in_valid),
+                                   total_bits=lp.packed.input_bits)
+        for li, pl in enumerate(lp.packed.layers):
+            words = executor._scatter_words(h, idx(pl.in_word), idx(pl.in_shift), pl.n_words)
+            args = (words, executor._i32(pl.weights).to(dev), executor._i32(pl.mask).to(dev),
+                    executor._i32(pl.thresholds).to(dev))
+            h = packed_layer.packed_layer(*args)
+            err = same(f"packed_layer merged {layout} layer {li} ({pl.n_out} out, {pl.n_words} words, "
+                       f"{packed_layer.route(*args[:2])})", h, packed_layer.packed_layer_plain(*args))
+            records["packed_layer"]["max_abs_err"] = max(records["packed_layer"]["max_abs_err"], err)
+
+
+def check_packed_layer_routed(dev, pools: dict) -> dict:
+    """``packed_layer_routed`` against its plain version on each pool's
+    stacked layers (``executor.stack_tenant_layers``), the words packed from
+    the mixed stream's first packets, at chunks of MT_CHUNK and CHUNK; pad
+    neurons must never fire.  Timed per chunk (all of a chunk's layers) as
+    the device time of a replayed CUDA graph of CHUNK_REPS chunks."""
+    fn, plain = packed_layer.packed_layer_routed, packed_layer.packed_layer_routed_plain
+    err = 0
+    chunks = {}
+    for count, (lowereds, tids, bits) in pools.items():
+        tables = [(executor._i32(w).to(dev), executor._i32(thr).to(dev), executor._i32(m).to(dev), nw)
+                  for w, thr, m, nw in executor.stack_tenant_layers(lowereds)]
+        for rows in (MT_CHUNK, CHUNK):
+            ids = torch.from_numpy(tids[:rows]).to(dev)
+            h = torch.from_numpy(bits[:rows]).to(dev)
+            launches = []
+            for li, (w, thr, m, nw) in enumerate(tables):
+                h = torch.nn.functional.pad(h, (0, nw * 32 - h.shape[1])) if h.shape[1] < nw * 32 else h[:, :nw * 32]
+                words = bitpack.pack_bits_words(h)
+                out = fn(words, ids, w, m, thr)
+                pads = (thr == -1).sum(1)
+                err = max(err, same(f"packed_layer_routed {count} tenants, layer {li} ({rows} packets, tables "
+                                    f"{tuple(w.shape)}, {int(pads.sum())} pad neurons)",
+                                    out, plain(words, ids, w, m, thr)))
+                if (out.bool() & (thr == -1)[ids.long()]).any():
+                    raise AssertionError(f"packed_layer_routed: a pad neuron (threshold 0xFFFFFFFF) fired")
+                launches.append((words, ids, w, m, thr, torch.empty_like(out)))
+                h = out
+            chunks[count, rows] = launches
+    t = graphs_in_turns({f"{count} tenants, chunk {rows}": repeated(
+        lambda ls=ls: [packed_layer._launch_routed(*a) for a in ls], CHUNK_REPS)
+        for (count, rows), ls in chunks.items()})
+    per_chunk = {name: v / CHUNK_REPS for name, v in t.items()}
+    nbytes = ops = 0.0
+    for words, ids, w, m, thr, out in chunks[8, CHUNK]:
+        (b, nw), (nt, n, _) = words.shape, w.shape
+        nbytes += (b * nw + b + b * n + 2 * nt * n * nw + nt * n) * 4
+        ops += b * n * (5 * nw + 1)  # xor, not, and, popc, add per word; compare
+    b_ms, b_by = bound_ms(nbytes, ops)
+    plain_ms = sum(time_ms(plain, *a[:5], iters=3) for a in chunks[8, CHUNK])
+    print(f"  packed_layer_routed per chunk (all layers), graph replay: "
+          + ", ".join(f"{name} {v} ms" for name, v in per_chunk.items())
+          + f"; bound (8 tenants, chunk {CHUNK}) {b_ms} ms ({b_by}); plain {plain_ms} ms")
+    return dict(
+        source="src/repro_torch/csrc/packed_layer.cu",
+        replaces="src/repro/dataplane/executor.py:839",
+        max_abs_err=err, ms=per_chunk[f"8 tenants, chunk {CHUNK}"],
+        ms_chunk_1024=per_chunk[f"8 tenants, chunk {MT_CHUNK}"],
+        ms_128_tenants=per_chunk[f"{MT_WIDE} tenants, chunk {CHUNK}"],
+        ms_128_tenants_chunk_1024=per_chunk[f"{MT_WIDE} tenants, chunk {MT_CHUNK}"],
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def drive_capture_tenants(dev, records: dict) -> None:
+    """examples/pcap_replay.py section 5 without training: a synthetic
+    capture written as pcap and pcapng and read back, registered as a
+    scenario, and served as one tenant of three."""
+    pkts, ts, _ = pcap.synthesize_capture(PCAP_PACKETS, seed=SEED)
+    for fmt, raw in (("pcap", pcap.write_pcap(pkts, ts)), ("pcapng", pcap.write_pcapng(pkts, ts))):
+        cap = pcap.read_pcap(raw)
+        if cap.fmt != fmt or cap.packets() != pkts or not np.allclose(cap.timestamps, ts, rtol=0, atol=1e-6):
+            raise AssertionError(f"{fmt}: the capture does not read back as written")
+        print(f"capture: {len(pkts)} packets, {len(raw)} bytes of {fmt}, read back equal")
+    pcap.register_pcap_scenario(PCAP_SCENARIO, cap, overwrite=True)
+    pool = tenant_pool(3, shapes=((64, 64, 1), (32, 16, 4), (24, 12, 4)),
+                       scenarios=(PCAP_SCENARIO, "iot_telemetry", "ddos_burst"), weights=(2.0, 1.0, 1.0),
+                       seed=SEED + 100)
+    tids, bits = traffic.mixed_tenant_generate(pool.specs, 2 * PCAP_PACKETS, seed=SEED)
+    wants = tenant_wants(dev, pool, tids, bits, PCAP_CHUNK)
+    for mode, layout in (("merged", "interleave"), ("time_sliced", None)):
+        for backend in ("packed", "jnp"):
+            sched = scheduler(pool, quantum=PCAP_CHUNK)
+            res = serve(dev, f"capture tenants, {mode}, {'packed' if backend == 'packed' else 'op-table'}",
+                        sched, tids, bits, wants, records, mode=mode, layout=layout, backend=backend,
+                        chunk=PCAP_CHUNK)
+            served = res.stats_for(0).served
+            replay = torch.from_numpy(traffic.generate(PCAP_SCENARIO, served, 64)).to(dev)
+            oracle = bnn.forward([w.to(dev) for w in pool.params[0]], replay).cpu().numpy()
+            if not np.array_equal(res.outputs_for(0), oracle):
+                raise AssertionError(f"capture tenant ({mode}, {backend}) disagrees with its oracle")
+    print(f"capture tenants: the capture tenant bit-exact with its oracle in both modes on both backends")
+
+
+def drive_multitenant(dev, records: dict) -> None:
+    """The multi-tenant phase (module docstring, step 7)."""
+    pools = {}
+    for count in (8, MT_WIDE):
+        t0 = time.perf_counter()
+        pool = tenant_pool(count)
+        tids, bits = traffic.mixed_tenant_generate(pool.specs, MT_PACKETS, seed=count)
+        pools[count] = (pool, tids, bits)
+        print(f"multi-tenant pool of {count}: programs and {MT_PACKETS} mixed packets in "
+              f"{time.perf_counter() - t0} s")
+    sched8 = scheduler(pools[8][0], quantum=MT_CHUNK)
+    check_merged_kernels(dev, sched8, pools[8][1][:MT_CHUNK], pools[8][2][:MT_CHUNK], records)
+    records["packed_layer_routed"] = check_packed_layer_routed(
+        dev, {c: ([p.lower() for p in pool.progs], tids, bits) for c, (pool, tids, bits) in pools.items()})
+
+    pool, tids, bits = pools[8]
+    wants = tenant_wants(dev, pool, tids, bits, MT_CHUNK)
+    for mode, layout in (("merged", "interleave"), ("merged", "concat"), ("time_sliced", None)):
+        for backend in ("packed", "jnp"):
+            name = f"{mode}/{layout}" if layout else mode
+            serve(dev, f"8 tenants, {name}, {'packed' if backend == 'packed' else 'op-table'}", sched8,
+                  tids, bits, wants, records, mode=mode, layout=layout, backend=backend)
+    print(sched8.telemetry().render())
+
+    pool, tids, bits = pools[MT_WIDE]
+    wants = tenant_wants(dev, pool, tids, bits, MT_CHUNK)
+    wide = scheduler(pool, quantum=MT_CHUNK)
+    serve(dev, f"{MT_WIDE} tenants, merged/interleave, packed", wide, tids, bits, wants, records,
+          mode="merged", layout="interleave", backend="packed")
+
+    pool = tenant_pool(MT_OVER)
+    over = scheduler(pool, mode="merged")
+    num_regs = over.merged("interleave").lowered.num_regs
+    zero_counts()
+    try:
+        over.run(traffic.mixed_tenant_generate(pool.specs, MT_CHUNK, seed=MT_OVER), backend="jnp",
+                 chunk_size=MT_CHUNK, device=dev)
+    except ValueError as exc:
+        if f"{num_regs} registers" not in str(exc) or str(_build.MAX_SHARED_BYTES) not in str(exc):
+            raise
+        print(f"{MT_OVER} tenants, merged/interleave, op-table: {num_regs} registers; refused as it must be: {exc}")
+    else:
+        raise AssertionError(f"{MT_OVER} tenants ({num_regs} registers) ran on the op-table kernel")
+    if num_regs != MT_OVER_REGS or read_counts():
+        raise AssertionError(f"{MT_OVER} tenants: {num_regs} registers, launches {read_counts()}")
+    drive_capture_tenants(dev, records)
+
+
+# ---------------------------------------------------------------------------
 # The LM slice
 # ---------------------------------------------------------------------------
 
@@ -611,6 +932,7 @@ COUNTED = {
     "pack_bits_words": bitpack.pack_bits_words,
     "bitpack": bitpack.bitpack,
     "packed_layer": packed_layer.packed_layer,
+    "packed_layer_routed": packed_layer.packed_layer_routed,
     "bnn_matmul_packed": bnn_matmul.bnn_matmul_packed,
     "bnn_matmul_mxu": bnn_matmul_mxu.bnn_matmul_mxu,
     "flash_attention": flash_attention.flash_attention,
@@ -1013,7 +1335,10 @@ def main() -> int:
     t_phase = time.perf_counter()
     drive_train_deploy(dev, records)
     print(f"train -> deploy phase: {time.perf_counter() - t_phase} s")
-    for name in ("optable_run", "pack_bits_words", "packed_layer"):
+    t_phase = time.perf_counter()
+    drive_multitenant(dev, records)
+    print(f"multi-tenant phase: {time.perf_counter() - t_phase} s")
+    for name in ("optable_run", "pack_bits_words", "packed_layer", "packed_layer_routed"):
         records[name]["launches"] = sum(records[name]["launches_by_path"].values())
 
     t_lm = time.perf_counter()
@@ -1041,7 +1366,8 @@ def main() -> int:
              launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=r.get("library_ms"),
-             **{key: r[key] for key in ("old_route_ms", "back_to_back_ms", "launches_by_path") if key in r})
+             **{key: r[key] for key in ("old_route_ms", "back_to_back_ms", "ms_chunk_1024", "ms_128_tenants",
+                                        "ms_128_tenants_chunk_1024", "launches_by_path") if key in r})
         for name, r in records.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -36,6 +36,21 @@
 //   and thresholds in shared memory once, then strides over the outputs.
 //
 // Both index with 32-bit integers (the wrapper keeps every index below 2^31).
+//
+// A third entry point, packed_layer_routed, is the per-tenant layer of the
+// multi-tenant scheduler's stacked dispatch.  It replaces no TPU kernel
+// either: the reference computes it in jnp
+// (src/repro/dataplane/executor.py:839-851, routed_packed_stacked_fn) with
+// jax.lax.population_count.  Each packet b carries a tenant id t_b, and its
+// neurons read that tenant's tables of a (T, N, W) stack:
+//   count = sum_w __popc(~(words[b, w] ^ weights[t_b, j, w]) & mask[t_b, j, w])
+//   out[b, j] = count >= thr[t_b, j]   (unsigned, {0,1} int32)
+// Design: one thread per (packet, neuron), neurons fastest, with a grid
+// stride.  The tables are read through the read-only cache and not staged
+// in shared memory: a 128-tenant stack need not fit one block's, and a
+// packet's neurons read one tenant's rows, so neighbouring threads read
+// neighbouring words.  An id outside [0, T) reads nothing and writes 0; the
+// wrapper refuses such ids before it launches.
 
 #include "common.cuh"
 
@@ -124,6 +139,33 @@ packed_layer_general_kernel(const uint32_t* __restrict__ words, const uint32_t* 
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+packed_layer_routed_kernel(const uint32_t* __restrict__ words, const int* __restrict__ ids,
+                           const uint32_t* __restrict__ weights, const uint32_t* __restrict__ mask,
+                           const uint32_t* __restrict__ thr, int* __restrict__ out, uint32_t batch,
+                           uint32_t n_out, uint32_t n_words, uint32_t n_tenants) {
+  const uint32_t total = batch * n_out;
+  for (uint32_t idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += gridDim.x * blockDim.x) {
+    const uint32_t b = idx / n_out;
+    const uint32_t j = idx - b * n_out;
+    const uint32_t t = static_cast<uint32_t>(__ldg(ids + b));  // a negative id wraps past n_tenants
+    if (t >= n_tenants) {
+      out[idx] = 0;
+      continue;
+    }
+    const uint32_t row = t * n_out + j;
+    const uint32_t* x = words + b * n_words;
+    const uint32_t* w = weights + row * n_words;
+    const uint32_t* mk = mask + row * n_words;
+    uint32_t count = 0;
+    for (uint32_t k = 0; k < n_words; ++k) {
+      count += static_cast<uint32_t>(__popc(~(__ldg(x + k) ^ __ldg(w + k)) & __ldg(mk + k)));
+    }
+    out[idx] = count >= __ldg(thr + row) ? 1 : 0;
+  }
+}
+
 template <int NW>
 int launch_quad(const void* words, const void* weights, const void* mask, const void* thr,
                 void* out, uint32_t batch, uint32_t n_out, cudaStream_t stream) {
@@ -168,5 +210,22 @@ extern "C" int packed_layer_general(const void* words, const void* weights, cons
       static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(weights),
       static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(thr),
       static_cast<int*>(out), batch, n_out, n_words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int packed_layer_routed(const void* words, const void* ids, const void* weights,
+                                   const void* mask, const void* thr, void* out, int batch,
+                                   int n_out, int n_words, int n_tenants, void* stream) {
+  if (batch < 0 || n_out <= 0 || n_words <= 0 || n_tenants <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint32_t total = static_cast<uint32_t>(batch) * static_cast<uint32_t>(n_out);
+  if (total == 0) return 0;
+  const uint32_t wanted = (total + kThreads - 1) / kThreads;
+  const uint32_t blocks = wanted < kMaxBlocks * 2 ? wanted : kMaxBlocks * 2;
+  packed_layer_routed_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<const int*>(ids),
+      static_cast<const uint32_t*>(weights), static_cast<const uint32_t*>(mask),
+      static_cast<const uint32_t*>(thr), static_cast<int*>(out), batch, n_out, n_words, n_tenants);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,6 +23,11 @@ raises; on the CPU it runs the kernel's plain PyTorch version.
 Register files and tables hold uint32 values as int32 bit views (see
 ``core.bitops``), so the kernels read them as they are.
 
+Routed dispatch (:func:`routed_fn`, :func:`routed_packed_fn`,
+:func:`routed_packed_stacked_fn`) runs a merged multi-tenant program over a
+mixed stream whose packets each carry a tenant (program) id: the serving
+path of ``dataplane.multitenant.SwitchScheduler``.
+
 Streaming (:func:`execute_stream`) re-chunks any packet iterator into
 fixed-size blocks so millions of packets run at constant device memory.  The
 stream path is instrumented through ``repro_torch.obs`` (packets/chunk
@@ -57,9 +62,9 @@ from repro_torch.dataplane.lowering import LoweredProgram
 from repro_torch.dataplane.plan import Backend
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bitpack import pack_bits_words
-from repro_torch.kernels.optable_exec import optable_run, optable_run_segmented
+from repro_torch.kernels.optable_exec import optable_run, optable_run_segmented, plan_threads
 from repro_torch.kernels.optable_exec import prepare as prepare_optable
-from repro_torch.kernels.packed_layer import packed_layer
+from repro_torch.kernels.packed_layer import packed_layer, packed_layer_routed
 
 DEFAULT_CHUNK = 1 << 15  # 32768 packets per device dispatch
 
@@ -280,6 +285,84 @@ def deparse_regs(
     return ((words >> out_shift[:, None]) & 1).T.contiguous()
 
 
+def parse_packets_routed(
+    packets: torch.Tensor,
+    program_ids: torch.Tensor,
+    slot_table: torch.Tensor,
+    shift_table: torch.Tensor,
+    valid_table: torch.Tensor,
+    *,
+    num_regs: int,
+) -> torch.Tensor:
+    """Per-packet-program parser for a shared register file.
+
+    ``packets``: (batch, max_bits) {0,1}; ``program_ids``: (batch,) integer
+    ids selecting each packet's row of the ``(num_programs, max_bits)``
+    integer parser tables.  Bits whose ``valid_table`` entry is 0 (width
+    padding for narrower programs) land harmlessly in the null slot with
+    value 0.  Returns the (num_regs, batch) int32 register files.  The
+    merged dispatch (:func:`routed_fn`) parses through the inverse gather
+    tables instead; this scatter is their definition.
+    """
+    pid = program_ids.long()
+    slots = slot_table.long()[pid]                      # (batch, max_bits)
+    shifts = shift_table.long()[pid]
+    vals = bitops.shl(packets.long() & valid_table.long()[pid], shifts)
+    regs = torch.zeros((num_regs, packets.shape[0]), dtype=torch.int64, device=packets.device)
+    cols = torch.arange(packets.shape[0], device=packets.device)[:, None].expand_as(slots)
+    regs.index_put_((slots, cols), vals, accumulate=True)
+    return bitops.u32_to_i32(regs)
+
+
+def deparse_regs_routed(
+    regs: torch.Tensor,
+    program_ids: torch.Tensor,
+    out_slot_table: torch.Tensor,
+    out_shift_table: torch.Tensor,
+) -> torch.Tensor:
+    """(num_regs, batch) -> (batch, max_out_bits) {0,1} int32, reading each
+    packet's bits through its own program's deparser table.  Width-padding
+    entries point at the null register and deparse as 0."""
+    pid = program_ids.long()
+    slots = out_slot_table.long()[pid]                  # (batch, bits)
+    shifts = out_shift_table.long()[pid]
+    cols = torch.arange(regs.shape[1], device=regs.device)[:, None]
+    words = bitops.i32_to_u32(regs[slots, cols])
+    return (bitops.shr(words, shifts) & 1).to(torch.int32)
+
+
+def route_bits_in(
+    packets: torch.Tensor,
+    program_ids: torch.Tensor,
+    bit_table: torch.Tensor,
+    valid_table: torch.Tensor,
+    *,
+    total_bits: int,
+) -> torch.Tensor:
+    """Dense-bit analogue of :func:`parse_packets_routed` for the packed
+    backend: scatter each packet's bits to its program's window of a
+    ``(batch, total_bits)`` merged input-bit vector ({0,1} int32).
+
+    ``bit_table``/``valid_table`` are ``(num_programs, max_bits)``; invalid
+    (width-padding) entries carry index 0 and valid 0, so they add nothing.
+    """
+    pid = program_ids.long()
+    out = torch.zeros((packets.shape[0], total_bits), dtype=torch.int64, device=packets.device)
+    out.scatter_add_(1, bit_table.long()[pid], packets.long() & valid_table.long()[pid])
+    return out.to(torch.int32)
+
+
+def route_bits_out(
+    bits: torch.Tensor, program_ids: torch.Tensor, bit_table: torch.Tensor
+) -> torch.Tensor:
+    """Gather each packet's output bits back out of a merged dense bit
+    vector through its program's ``(num_programs, max_out_bits)`` routing
+    table.  Width-padding entries gather bit 0; callers slice them off per
+    tenant just as with :func:`deparse_regs_routed`."""
+    idx = bit_table.long()[program_ids.long()]          # (batch, max_out)
+    return torch.gather(bits, 1, idx).to(torch.int32)
+
+
 def alu_variants(r0, r1, i0, i1, used: tuple) -> list:
     """The dense-opcode ALU on uint32 carriers: ``[(code, value), ...]`` for
     the opcodes in ``used``.  The plain op-table path computes from this
@@ -360,6 +443,268 @@ def run_hops_scanned(
     for tables in _stacked_tables(stacked, regs.device):
         regs = optable_run(regs, *tables)
     return regs
+
+
+# ---------------------------------------------------------------------------
+# Fused routed dispatch (merged multi-tenant programs)
+# ---------------------------------------------------------------------------
+
+_ROUTED_CACHE: dict[tuple, Callable] = {}
+
+
+def _routing_key(*tables: np.ndarray) -> int:
+    """Content hash of per-tenant routing tables.
+
+    Merged-program fingerprints are insertion-order canonical (so the table
+    caches dedupe permuted tenant sets), but the tenant-id-indexed routing
+    tables are NOT order-invariant — two schedulers admitting the same
+    programs in different orders share op-tables yet route differently.  The
+    routed caches therefore key on fingerprint *plus* routing content (and
+    the device, as every table cache here does).
+    """
+    return hash(tuple(np.asarray(t).tobytes() for t in tables))
+
+
+def _invert_bit_routing(bit_table, valid_table, total_bits: int):
+    """Forward scatter tables -> inverse gather tables.
+
+    The routing is a bijection from each program's valid packet columns
+    onto its disjoint window, so it inverts exactly: for every dense
+    position, which packet column feeds it (``src``) and whether it is fed
+    at all (``ok``).  The fused dispatch then needs only gathers, with no
+    scatter-add into a per-chunk buffer.
+    """
+    bt = np.asarray(bit_table)
+    vt = np.asarray(valid_table).astype(bool)
+    src = np.zeros((bt.shape[0], total_bits), np.int32)
+    ok = np.zeros((bt.shape[0], total_bits), np.uint32)
+    for p in range(bt.shape[0]):
+        cols = np.nonzero(vt[p])[0]
+        src[p, bt[p, cols]] = cols
+        ok[p, bt[p, cols]] = 1
+    return src, ok
+
+
+def _invert_parse_routing(slot_table, shift_table, valid_table):
+    """Register-file analogue of :func:`_invert_bit_routing`.
+
+    Each program maps its valid packet columns onto distinct
+    ``(slot, shift)`` pairs; only a handful of slots (the input registers)
+    ever receive parser bits.  Returns ``(slots, col, ok)`` where ``slots``
+    is that receiving set and ``col``/``ok`` are ``(programs, len(slots),
+    32)`` gather tables: word ``s`` of a packet's register file is the
+    OR over ``k`` of ``packet[col[p, s, k]] << k``.
+    """
+    st = np.asarray(slot_table)
+    sh = np.asarray(shift_table)
+    vt = np.asarray(valid_table).astype(bool)
+    num_programs = st.shape[0]
+    slots = np.unique(st[vt]) if vt.any() else np.zeros(1, np.int64)
+    index_of = {int(s): i for i, s in enumerate(slots)}
+    col = np.zeros((num_programs, len(slots), 32), np.int32)
+    ok = np.zeros((num_programs, len(slots), 32), np.uint32)
+    for p in range(num_programs):
+        for c in np.nonzero(vt[p])[0]:
+            col[p, index_of[int(st[p, c])], int(sh[p, c])] = c
+            ok[p, index_of[int(st[p, c])], int(sh[p, c])] = 1
+    return slots.astype(np.int32), col, ok
+
+
+def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy table as an int64 tensor on ``device`` (gather indices)."""
+    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+
+
+def routed_fn(
+    lp: LoweredProgram,
+    in_slot: np.ndarray,
+    in_shift: np.ndarray,
+    in_valid: np.ndarray,
+    out_slot: np.ndarray,
+    out_shift: np.ndarray,
+    *,
+    backend: str = "jnp",
+    device="cuda",
+) -> Callable:
+    """Merged dispatch on ``device``: routed parse -> the op-table over the
+    shared register file -> routed deparse, as one ``(packets, program_ids)
+    -> (batch, max_out_bits)`` function.
+
+    The parse gathers through the inverse tables
+    (:func:`_invert_parse_routing`), the program runs as one
+    ``optable_run`` launch (``optable_run_segmented`` over the merged
+    plan), and the register file never leaves the device between phases.
+    Cached per (program fingerprint, device, routing content).  On a CUDA
+    device the merged register file must fit the op-table kernel's shared
+    memory: a ``ValueError`` naming the limit and the register count is
+    raised here, before any chunk runs.
+    """
+    if resolve_backend(backend) == "packed":
+        raise ValueError(
+            "the packed backend routes dense bits, not register files; use "
+            "routed_packed_fn"
+        )
+    device = resolve_device(device)
+    key = (
+        lp.fingerprint(), str(device),
+        _routing_key(in_slot, in_shift, in_valid, out_slot, out_shift),
+    )
+    fn = _ROUTED_CACHE.get(key)
+    if fn is not None:
+        return fn
+    t = _device_tables(lp, device)
+    if device.type == "cuda":
+        plan, _ = prepare_optable((*t.ops, t.first_write), lp.num_regs)
+        plan_threads(plan, lp.num_regs)
+    reg_slots, parse_col, parse_ok = _invert_parse_routing(in_slot, in_shift, in_valid)
+    n_slots = len(reg_slots)
+    d_reg_slots = _index(reg_slots, device)
+    d_col = _index(parse_col.reshape(parse_col.shape[0], -1), device)
+    d_ok = torch.from_numpy(parse_ok.reshape(parse_ok.shape[0], -1).astype(np.int32)).to(device)
+    d_out_slot = _index(out_slot, device)
+    d_out_shift = _index(out_shift, device)
+    shifts = torch.arange(32, dtype=torch.int64, device=device)
+    num_regs = lp.num_regs
+
+    def fn(packets: torch.Tensor, program_ids: torch.Tensor) -> torch.Tensor:
+        pid = program_ids.long()  # once a chunk: every gather below indexes with it
+        batch = packets.shape[0]
+        bits = packets.gather(1, d_col[pid]) & d_ok[pid]    # (batch, slots * 32)
+        words = bitops.shl(bits.long().view(batch, n_slots, 32), shifts).sum(2)
+        regs = torch.zeros((num_regs, batch), dtype=torch.int32, device=packets.device)
+        regs[d_reg_slots] = bitops.u32_to_i32(words.T)
+        regs = optable_run_segmented(regs, *t.ops, t.first_write, runs=t.runs)
+        return deparse_regs_routed(regs, pid, d_out_slot, d_out_shift)
+
+    _ROUTED_CACHE[key] = fn
+    return fn
+
+
+def routed_packed_fn(
+    lp: LoweredProgram,
+    packed_in_bit: np.ndarray,
+    packed_out_bit: np.ndarray,
+    in_valid: np.ndarray,
+    *,
+    device="cuda",
+) -> Callable:
+    """Packed-backend twin of :func:`routed_fn`: route dense bits into the
+    merged packed program's input window, run the block-diagonal XNOR/popcnt
+    chain (:func:`_packed_fn`: ``pack_bits_words`` or a scatter into words,
+    then ``packed_layer``, per layer), and gather each packet's bits back
+    out."""
+    pp = lp.packed
+    if pp is None:
+        raise ValueError(
+            "merged program has no packed plan; every tenant must carry one "
+            "(compiler-built programs do)"
+        )
+    device = resolve_device(device)
+    key = (
+        lp.fingerprint(), "packed", str(device),
+        _routing_key(packed_in_bit, in_valid, packed_out_bit),
+    )
+    fn = _ROUTED_CACHE.get(key)
+    if fn is not None:
+        return fn
+    inner = _packed_fn(lp, device)
+    src_tbl, ok_tbl = _invert_bit_routing(packed_in_bit, in_valid, pp.input_bits)
+    d_src = _index(src_tbl, device)
+    d_ok = torch.from_numpy(ok_tbl.astype(np.int32)).to(device)
+    d_out = _index(packed_out_bit, device)
+
+    def fn(packets: torch.Tensor, program_ids: torch.Tensor) -> torch.Tensor:
+        pid = program_ids.long()
+        dense = packets.gather(1, d_src[pid]) & d_ok[pid]
+        return route_bits_out(inner(dense), pid, d_out)
+
+    _ROUTED_CACHE[key] = fn
+    return fn
+
+
+_ROUTED_STACK_CACHE: dict[tuple, Callable] = {}
+
+
+def stack_tenant_layers(lowereds) -> list[tuple] | None:
+    """Each merged layer of :func:`routed_packed_stacked_fn` as numpy
+    ``(weights, thresholds, mask, n_words)``: tables of shape (T, max_n,
+    max_w) and (T, max_n), every tenant's layer padded to the widest block
+    with never-firing neurons, shallower tenants depth-padded with
+    identity layers.  ``None`` when a tenant has no packed plan or a layer
+    whose bits are not laid out contiguously."""
+    packs = [lp.packed for lp in lowereds]
+    if any(pp is None for pp in packs):
+        return None
+    depth = max(len(pp.layers) for pp in packs)
+    columns = []
+    for pp in packs:
+        ls = list(pp.layers)
+        while len(ls) < depth:
+            ls.append(lowering.PackedLayer.identity(ls[-1].n_out))
+        if not all(_trivial_layout(pl) for pl in ls):
+            return None
+        columns.append(ls)
+    stacked = []
+    for layer_idx in range(depth):
+        pls = [c[layer_idx] for c in columns]
+        max_n = max(pl.n_out for pl in pls)
+        max_w = max(pl.n_words for pl in pls)
+        w = np.zeros((len(pls), max_n, max_w), np.uint32)
+        m = np.zeros((len(pls), max_n, max_w), np.uint32)
+        # Pad neurons can never fire: agreement tops out at 32 * words.
+        thr = np.full((len(pls), max_n), 0xFFFFFFFF, np.uint32)
+        for t, pl in enumerate(pls):
+            w[t, : pl.n_out, : pl.n_words] = pl.weights
+            m[t, : pl.n_out, : pl.n_words] = pl.mask
+            thr[t, : pl.n_out] = pl.thresholds
+        stacked.append((w, thr, m, max_w))
+    return stacked
+
+
+def routed_packed_stacked_fn(lowereds: tuple, *, device="cuda") -> Callable | None:
+    """Widest-tenant packed dispatch for an interleaved merge.
+
+    The block-diagonal merged packed program (``routed_packed_fn``) makes
+    every packet XNOR against every tenant's words — per-chunk work scales
+    with the *sum* of tenant widths.  Here each tenant's packed layers are
+    instead stacked along a leading tenant axis, padded to the widest
+    block per stage (pad neurons carry unreachable thresholds, so they
+    emit 0), and each packet reads its own tenant's weight block by
+    ``program_id`` (the ``packed_layer_routed`` kernel) — per-chunk work
+    scales with the *widest/deepest* tenant per stage.  Inputs and outputs
+    stay tenant-local (bit ``i`` of tenant ``t`` lives at position ``i``
+    for every tenant), so no bit routing is needed at either end.
+
+    Returns ``None`` when any tenant lacks a packed plan or uses a
+    non-trivial word layout (hand-assembled programs) — callers fall back
+    to the block-diagonal merged plan.  Cached per tenant fingerprints and
+    device.
+    """
+    device = resolve_device(device)
+    key = (tuple(lp.fingerprint() for lp in lowereds), str(device))
+    fn = _ROUTED_STACK_CACHE.get(key)
+    if fn is not None:
+        return fn
+    host = stack_tenant_layers(lowereds)
+    if host is None:
+        return None
+    stacked = [(_i32(w).to(device), _i32(thr).to(device), _i32(m).to(device), max_w)
+               for w, thr, m, max_w in host]
+
+    def fn(packets: torch.Tensor, program_ids: torch.Tensor) -> torch.Tensor:
+        ids = program_ids.to(torch.int32)  # the kernel's ids; a no-op for the scheduler's
+        h = packets                        # (batch, bits) {0,1}, tenant-local
+        for w_tbl, thr_tbl, m_tbl, n_words in stacked:
+            need = n_words * 32
+            if h.shape[1] < need:
+                h = torch.nn.functional.pad(h, (0, need - h.shape[1]))
+            else:
+                h = h[:, :need]
+            h = packed_layer_routed(pack_bits_words(h), ids, w_tbl, m_tbl, thr_tbl)
+        return h
+
+    _ROUTED_STACK_CACHE[key] = fn
+    return fn
 
 
 def _run_chunk(

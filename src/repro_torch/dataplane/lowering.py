@@ -136,6 +136,28 @@ class PackedLayer:
             n_words=n_words,
         )
 
+    @classmethod
+    def identity(cls, width: int) -> "PackedLayer":
+        """A pass-through layer: neuron ``j`` reproduces input bit ``j``
+        (single-bit weight, threshold 1).  Used to depth-pad shallower
+        tenants in a merged packed program."""
+        if width < 1:
+            raise ValueError(f"identity layer needs width >= 1, got {width}")
+        n_words = max(1, -(-width // WORD))
+        eye = np.zeros((width, n_words), np.uint32)
+        bit = np.arange(width)
+        eye[bit, bit // WORD] = U32(1) << (bit % WORD).astype(np.uint32)
+        return cls(
+            weights=eye,
+            thresholds=np.ones(width, np.uint32),
+            mask=eye.copy(),
+            in_word=(bit // WORD).astype(np.int32),
+            in_shift=(bit % WORD).astype(np.uint32),
+            n_in=width,
+            n_out=width,
+            n_words=n_words,
+        )
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class PackedProgram:
@@ -545,6 +567,144 @@ def stack_packed_layers(pp: PackedProgram) -> StackedPackedLayers:
         mask=mask,
         in_word=in_word,
         in_shift=in_shift,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Interleaved multi-tenant merge planning
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class InterleavedTables:
+    """Op-tables for N relocated programs interleaved onto shared stages.
+
+    Merged stage ``e`` carries element ``e`` of *every* part at once — the
+    multi-tenant analogue of RMT packing several match-action entries into
+    one physical stage — so the merged element count is the *deepest* part,
+    not the sum of parts.  ``row_part``/``row_src_elem``/``row_src_row``
+    record where each merged row came from (-1 for pad rows), which is what
+    makes the merge auditable: un-interleaving by provenance must reproduce
+    every part's tables exactly (property-tested in
+    ``tests/test_multitenant.py``).  Built by :func:`interleave_tables`.
+    """
+
+    opcode: np.ndarray           # (max_elements, peak_rows) int32
+    dst: np.ndarray              # int32
+    src0: np.ndarray             # int32
+    src1: np.ndarray             # int32
+    imm0: np.ndarray             # uint32
+    imm1: np.ndarray             # uint32
+    mask: np.ndarray             # uint32
+    first_write: np.ndarray      # int32
+    rows_per_element: np.ndarray  # (max_elements,) int32 true rows per stage
+    element_stages: tuple[str, ...]
+    num_ops: int
+    opcode_counts: np.ndarray | None
+    row_part: np.ndarray         # (max_elements, peak_rows) int32, -1 = pad
+    row_src_elem: np.ndarray     # source element within the part, -1 = pad
+    row_src_row: np.ndarray      # source row within that element, -1 = pad
+
+
+def peak_stage_rows(lowereds: Sequence[LoweredProgram]) -> int:
+    """Widest shared stage of an element-interleaved merge: the max over
+    stages of the summed true row counts of every program's element at that
+    stage.  This is the quantity admission control holds against
+    ``ChipSpec.max_parallel_ops`` — the per-stage ALU budget all tenants
+    share once their elements occupy the same physical stage."""
+    if not lowereds:
+        return 0
+    max_e = max(lp.num_elements for lp in lowereds)
+    totals = np.zeros(max_e, np.int64)
+    for lp in lowereds:
+        totals[: lp.num_elements] += lp.rows_per_element
+    return max(1, int(totals.max()))
+
+
+def interleave_tables(parts: Sequence[LoweredProgram]) -> InterleavedTables:
+    """Interleave relocated programs' elements onto shared physical stages.
+
+    Merged stage ``e`` concatenates the true rows of every part's element
+    ``e`` (parts shallower than ``e`` contribute nothing), stably re-sorts
+    the combined rows by dense opcode — preserving the opcode-run coalescing
+    contract ``lower_program`` established per program — and pads the stage
+    to the global peak row count.  The re-sort is safe: every row reads the
+    register state *entering* the stage, parts write disjoint slot windows,
+    and the stable sort keeps each part's FOLD first-write -> continuation
+    order intact (all FOLD micro-rows share opcode ``SHL_IMM``), which the
+    CUDA kernel's sequential write pass relies on.
+
+    Parts must already share one register file: callers relocate each onto
+    a disjoint window via ``with_slot_window`` first.
+    """
+    if not parts:
+        raise ValueError("interleave_tables needs at least one program")
+    num_slots = parts[0].num_slots
+    if any(p.num_slots != num_slots for p in parts):
+        raise ValueError(
+            "interleave parts must share one relocated register file "
+            "(apply with_slot_window onto disjoint windows first)"
+        )
+    max_e = max(p.num_elements for p in parts)
+    peak = peak_stage_rows(parts)
+    null = num_slots
+    specs = (
+        ("opcode", np.int32, SHR_AND_IMM),
+        ("dst", np.int32, null),
+        ("src0", np.int32, null),
+        ("src1", np.int32, null),
+        ("imm0", np.uint32, 0),
+        ("imm1", np.uint32, 0),
+        ("mask", np.uint32, 0),
+        ("first_write", np.int32, 1),
+    )
+    tables = {n: np.full((max_e, peak), fill, dt) for n, dt, fill in specs}
+    row_part = np.full((max_e, peak), -1, np.int32)
+    row_src_elem = np.full((max_e, peak), -1, np.int32)
+    row_src_row = np.full((max_e, peak), -1, np.int32)
+    rows_per = np.zeros(max_e, np.int32)
+    have_counts = all(p.opcode_counts is not None for p in parts)
+    counts = (
+        np.zeros((max_e, NUM_DENSE_OPCODES), np.int32) if have_counts else None
+    )
+    stages: list[str] = []
+    for e in range(max_e):
+        cols: dict[str, list[np.ndarray]] = {n: [] for n, _, _ in specs}
+        prov_p: list[np.ndarray] = []
+        prov_r: list[np.ndarray] = []
+        names: list[str] = []
+        for pi, p in enumerate(parts):
+            if e >= p.num_elements:
+                continue
+            if counts is not None:
+                counts[e] += p.opcode_counts[e]
+            names.append(f"p{pi}:{p.element_stages[e]}")
+            r = int(p.rows_per_element[e])
+            if r == 0:
+                continue
+            for n, _, _ in specs:
+                cols[n].append(getattr(p, n)[e, :r])
+            prov_p.append(np.full(r, pi, np.int32))
+            prov_r.append(np.arange(r, dtype=np.int32))
+        stages.append("+".join(names) if names else "pad")
+        if not prov_p:
+            continue
+        order = np.argsort(np.concatenate(cols["opcode"]), kind="stable")
+        k = order.size
+        rows_per[e] = k
+        for n, _, _ in specs:
+            tables[n][e, :k] = np.concatenate(cols[n])[order]
+        row_part[e, :k] = np.concatenate(prov_p)[order]
+        row_src_elem[e, :k] = e
+        row_src_row[e, :k] = np.concatenate(prov_r)[order]
+    return InterleavedTables(
+        rows_per_element=rows_per,
+        element_stages=tuple(stages),
+        num_ops=int(rows_per.sum()),
+        opcode_counts=counts,
+        row_part=row_part,
+        row_src_elem=row_src_elem,
+        row_src_row=row_src_row,
+        **tables,
     )
 
 

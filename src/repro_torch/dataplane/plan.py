@@ -14,16 +14,18 @@ Dispatch is by program/stream type:
   ``executor.execute`` (returns the output bits);
 * ... + a chunk iterator -> ``executor.execute_stream`` (returns
   :class:`~repro_torch.dataplane.executor.StreamResult`);
+* ``SwitchScheduler`` + a ``(tenant_ids, bits)`` mixed stream (or an
+  iterator of such chunks) -> ``SwitchScheduler.run`` (returns
+  :class:`~repro_torch.dataplane.multitenant.SchedulerRunResult`, outputs
+  collected), in the plan's ``merged`` layout;
 * ``SwitchFabric`` -> ``fabric.run`` (hop-scanned when the plan allows);
 * ``Backend.INTERPRETER`` -> the per-op reference interpreter
   (``core.interpreter.run_program``) — the correctness witness, only
   reachable through :func:`run` (the executors never accept it).
 
-Not ported yet, and raising ``NotImplementedError``: any other program,
-such as the multi-tenant ``SwitchScheduler`` (ROADMAP Queue 1 item 7), and
-``plan.fleet`` (item 8), for a program or a fabric alike.  The reference's
-``devices`` (a fleet's sharding) and ``merged`` (the scheduler's table
-layout) come with those items.
+Not ported yet, and raising ``NotImplementedError``: ``plan.fleet``
+(ROADMAP Queue 1 item 8), for a program or a fabric alike.  The
+reference's ``devices`` (a fleet's sharding) comes with that item.
 
 The keyword surfaces stay: every ``backend=`` string the executors accept
 still works, and ``executor.resolve_backend`` takes :class:`Backend`
@@ -88,6 +90,10 @@ class ExecutionPlan:
     ``fleet``       batch this many independent streams (not ported yet:
                     any run with it set raises, ROADMAP Queue 1 item 8).
     ``collect``     keep outputs (streaming paths default to stats-only).
+    ``merged``      multi-tenant merged-table layout ("interleave" packs
+                    tenants' elements onto shared stages, "concat" stacks
+                    them; None -> the scheduler's configured layout).  Only
+                    meaningful when running a ``SwitchScheduler``.
     """
 
     backend: Backend | str = Backend.AUTO
@@ -96,6 +102,7 @@ class ExecutionPlan:
     scan_hops: bool | None = None
     fleet: int | None = None
     collect: bool = False
+    merged: str | None = None
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "backend", Backend.coerce(self.backend))
@@ -103,6 +110,13 @@ class ExecutionPlan:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
         if self.fleet is not None and self.fleet < 1:
             raise ValueError(f"fleet must be >= 1, got {self.fleet}")
+        if self.merged is not None and self.merged not in (
+            "interleave", "concat"
+        ):
+            raise ValueError(
+                "merged must be 'interleave', 'concat', or None, "
+                f"got {self.merged!r}"
+            )
 
     @property
     def backend_str(self) -> str:
@@ -110,7 +124,6 @@ class ExecutionPlan:
         return self.backend.value
 
 
-_SCHEDULER = "the multi-tenant SwitchScheduler is not ported yet (ROADMAP Queue 1 item 7)"
 _FLEET = "fleet plans are not ported yet (ROADMAP Queue 1 item 8)"
 
 
@@ -125,7 +138,8 @@ def run(program, stream, *, plan: ExecutionPlan | None = None, device="cuda"):
     ``device``.
 
     See the module docstring for the dispatch table.  ``stream`` may be a
-    ``(batch, input_bits)`` {0,1} array or an iterator of such chunks.
+    ``(batch, input_bits)`` {0,1} array, an iterator of such chunks, or a
+    ``(tenant_ids, bits)`` mixed stream (for a scheduler).
     """
     import numpy as np
 
@@ -133,10 +147,23 @@ def run(program, stream, *, plan: ExecutionPlan | None = None, device="cuda"):
     from repro_torch.core.pipeline import PipelineProgram
     from repro_torch.dataplane import executor as _executor
     from repro_torch.dataplane import fabric as _fabric
+    from repro_torch.dataplane import multitenant as _multitenant
     from repro_torch.dataplane.lowering import LoweredProgram, lower_program
 
     plan = plan or ExecutionPlan()
     refuse_fleet(plan)
+
+    if isinstance(program, _multitenant.SwitchScheduler):
+        if plan.backend is Backend.INTERPRETER:
+            raise ValueError("the interpreter backend serves single programs")
+        return program.run(
+            stream,
+            backend=plan.backend_str,
+            chunk_size=plan.chunk_size,
+            collect=True,
+            merged=plan.merged,
+            device=device,
+        )
 
     if isinstance(program, _fabric.SwitchFabric):
         if plan.backend is Backend.INTERPRETER:
@@ -144,7 +171,10 @@ def run(program, stream, *, plan: ExecutionPlan | None = None, device="cuda"):
         return program.run(stream, plan=plan, device=device)
 
     if not isinstance(program, (PipelineProgram, LoweredProgram)):
-        raise NotImplementedError(f"run() of a {type(program).__name__}: {_SCHEDULER}")
+        raise TypeError(
+            "run() takes a PipelineProgram, LoweredProgram, SwitchFabric or "
+            f"SwitchScheduler, got {type(program).__name__}"
+        )
 
     if plan.backend is Backend.INTERPRETER:
         if isinstance(program, LoweredProgram):

@@ -15,6 +15,11 @@ the workloads the in-network-NN literature actually classifies:
   (decision-boundary robustness probes).
 * ``uniform_random`` — i.i.d. fair coin bits (the null workload).
 
+Beyond the built-in synthetic five, :func:`register_scenario` admits new
+scenarios at runtime — ``dataplane.pcap`` uses it to register *captured*
+traffic (pcap/pcapng files featurized to activation bits) under the same
+contract; see ``docs/TRAFFIC.md``.
+
 A scenario is a ``setup`` (draw the trace's persistent world: flow pool,
 attacker signature, device fleet) plus an ``emit`` over an absolute packet
 range.  :func:`stream` runs setup **once** and emits successive ranges, so a
@@ -38,7 +43,9 @@ Invariants:
 
 * **Determinism** — same ``(scenario, n, input_bits, seed)`` means the same
   bits, on any platform; ``stream`` over ``[0, n)`` in any chunking equals
-  ``generate(n, ...)`` of the same world.
+  ``generate(n, ...)`` of the same world.  The BNN trainer's train/held-out
+  splits (``train.bnn_trainer.make_traffic_task``) depend on this to carve
+  temporal splits out of one world.
 * **Shape/domain** — every emitter returns exactly ``(n, input_bits)``
   int32 in {0,1}; ``_fold_bits`` makes any scenario usable at any model
   input width (fold is parity-preserving per column).
@@ -59,6 +66,7 @@ _TUPLE_BITS = 104
 CANONICAL_CHUNK = 1024
 _SETUP_TAG = 0
 _EMIT_TAG = 1
+_ASSIGN_TAG = 2
 
 
 def _fold_bits(bits: np.ndarray, width: int) -> np.ndarray:
@@ -306,6 +314,22 @@ def get_scenario(name: str) -> Scenario:
         ) from None
 
 
+def register_scenario(scenario: Scenario, *, overwrite: bool = False) -> Scenario:
+    """Add a scenario to :data:`SCENARIOS` (e.g. a pcap-backed one from
+    ``dataplane.pcap``), making it usable everywhere a scenario name is —
+    ``generate``/``stream``, trainer tasks, and mixed-tenant specs.
+    Registering a different scenario under an existing name requires
+    ``overwrite=True``; re-registering the same object is a no-op."""
+    existing = SCENARIOS.get(scenario.name)
+    if existing is not None and existing is not scenario and not overwrite:
+        raise ValueError(
+            f"scenario {scenario.name!r} is already registered; pass "
+            "overwrite=True to replace it"
+        )
+    SCENARIOS[scenario.name] = scenario
+    return scenario
+
+
 def generate(name: str, n: int, input_bits: int, seed: int = 0) -> np.ndarray:
     return get_scenario(name).generate(n, input_bits, seed)
 
@@ -316,4 +340,112 @@ def stream(
     """Yield a scenario as bounded chunks sharing one persistent world."""
     return get_scenario(name).stream(
         n, input_bits, chunk_size=chunk_size, seed=seed
+    )
+
+
+# -- mixed-tenant traffic -----------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TenantTrafficSpec:
+    """One tenant's share of a mixed stream: which scenario generates its
+    packets, how wide its model's input is, and its arrival weight."""
+
+    scenario: str
+    input_bits: int
+    weight: float = 1.0
+
+    def __post_init__(self) -> None:
+        get_scenario(self.scenario)  # fail fast on unknown names
+        if self.input_bits <= 0:
+            raise ValueError(f"input_bits must be positive, got {self.input_bits}")
+        if self.weight <= 0:
+            raise ValueError(f"weight must be positive, got {self.weight}")
+
+
+def tenant_stream_seed(seed: int, tid: int) -> int:
+    """The derived seed of tenant ``tid``'s scenario sub-stream within a
+    mixed trace.  Exposed so tests can reproduce one tenant's packets with
+    plain :func:`generate` — tenant ``t``'s subsequence in a mixed stream IS
+    ``generate(spec.scenario, count_t, spec.input_bits, seed=this)``."""
+    return int(np.random.SeedSequence([seed, tid]).generate_state(1)[0])
+
+
+def _assignment_chunks(
+    n_tenants: int, weights: np.ndarray, seed: int
+) -> Iterator[np.ndarray]:
+    """Canonical-chunk iterator of weighted i.i.d. tenant-id draws."""
+    start = 0
+    while True:
+        rng = np.random.default_rng([seed, _ASSIGN_TAG, start])
+        yield rng.choice(n_tenants, size=CANONICAL_CHUNK, p=weights).astype(
+            np.int32
+        )
+        start += CANONICAL_CHUNK
+
+
+def mixed_tenant_stream(
+    specs: list[TenantTrafficSpec] | tuple[TenantTrafficSpec, ...],
+    n: int,
+    *,
+    chunk_size: int,
+    seed: int = 0,
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Interleave per-tenant scenario streams into one tagged packet stream.
+
+    Yields ``(tenant_ids, bits)`` chunks: ``tenant_ids`` is ``(k,)`` int32,
+    ``bits`` is ``(k, max(input_bits))`` int32 {0,1} with each row generated
+    by its tenant's scenario at the tenant's width and zero-padded to the
+    common width.  Arrival order is an i.i.d. weighted draw; each tenant's
+    *subsequence* is exactly that tenant's scenario stream under the seed
+    :func:`tenant_stream_seed` derives (setup once, per-tenant world
+    persists across chunks, positions are tenant-local).
+
+    Determinism matches :meth:`Scenario.stream`: same ``(specs, n, seed)``
+    gives the same packets under any chunking — assignment and every
+    tenant's emission ride the canonical-chunk scheme, and each tenant's
+    packet positions depend only on cumulative assignment counts.
+    """
+    if not specs:
+        raise ValueError("mixed_tenant_stream needs at least one tenant spec")
+    if chunk_size <= 0:
+        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    width = max(s.input_bits for s in specs)
+    weights = np.array([s.weight for s in specs], np.float64)
+    weights = weights / weights.sum()
+
+    assign = _Puller(_assignment_chunks(len(specs), weights, seed))
+    pullers = [
+        _Puller(
+            get_scenario(sp.scenario).iter_chunks(
+                sp.input_bits, seed=tenant_stream_seed(seed, t)
+            )
+        )
+        for t, sp in enumerate(specs)
+    ]
+
+    for start in range(0, n, chunk_size):
+        k = min(chunk_size, n - start)
+        tids = assign.pull(k)
+        bits = np.zeros((k, width), np.int32)
+        for t, sp in enumerate(specs):
+            rows = np.nonzero(tids == t)[0]
+            if rows.size:
+                bits[rows, : sp.input_bits] = pullers[t].pull(rows.size)
+        yield tids, bits
+
+
+def mixed_tenant_generate(
+    specs: list[TenantTrafficSpec] | tuple[TenantTrafficSpec, ...],
+    n: int,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """One-shot form of :func:`mixed_tenant_stream`: ``(tenant_ids, bits)``
+    for the whole trace."""
+    chunks = list(mixed_tenant_stream(specs, n, chunk_size=max(1, n), seed=seed))
+    if not chunks:
+        width = max(s.input_bits for s in specs)
+        return np.zeros(0, np.int32), np.zeros((0, width), np.int32)
+    return (
+        np.concatenate([t for t, _ in chunks]),
+        np.concatenate([b for _, b in chunks]),
     )

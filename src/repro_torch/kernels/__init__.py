@@ -7,7 +7,8 @@ in ``repro_torch/csrc`` and are built by ``kernels._build`` at first use.
 
   optable_exec    — the op-table ALU of the dataplane executor
   bitpack         — sign / {0,1} bits -> packed uint32 words
-  packed_layer    — XNOR-popcount-threshold layer of the packed backend
+  packed_layer    — XNOR-popcount-threshold layer of the packed backend, and
+                    its per-tenant form for the multi-tenant scheduler
   bnn_matmul      — packed XNOR-popcount GEMM (the LM's packed projections)
   bnn_matmul_mxu  — ±1 binary GEMM on the tensor cores
   flash_attention — fused online-softmax attention

@@ -53,11 +53,21 @@ def block_threads(num_regs: int, scratch_rows: int, fixed_bytes: int = 0) -> int
         if blocks * threads > most:
             best, most = threads, blocks * threads
     if best is None:
+        least = (num_regs + scratch_rows) * 4 * BLOCK_THREADS[-1] + fixed_bytes
         raise ValueError(
-            f"{num_regs} registers + {scratch_rows} scratch rows do not fit shared memory "
-            f"even at {BLOCK_THREADS[-1]} packets per block"
+            f"{num_regs} registers + {scratch_rows} scratch rows need {least} B of shared memory "
+            f"at {BLOCK_THREADS[-1]} packets per block, beyond the {_build.MAX_SHARED_BYTES} B "
+            "limit of one block: the op-table kernel keeps each packet's register file in "
+            "shared memory"
         )
     return best
+
+
+def plan_threads(plan: "Plan", num_regs: int) -> int:
+    """Packets per block of a launch on ``plan`` over ``num_regs`` registers
+    (the block also stages two elements' records); raises ``ValueError`` when
+    one packet's registers and scratch do not fit a block of the smallest size."""
+    return block_threads(num_regs, plan.max_deferred, 2 * plan.stride * 16)
 
 
 def _check_args(regs, tables) -> None:
@@ -274,7 +284,7 @@ def optable_run(
     if batch == 0 or num_el == 0:
         out.copy_(regs)
         return out
-    threads = block_threads(num_regs, plan.max_deferred, 2 * plan.stride * 16)
+    threads = plan_threads(plan, num_regs)
     lib = _build.library("optable_exec", _SIGNATURES)
     with torch.cuda.device(regs.device):
         code = lib.optable_run(

@@ -22,6 +22,12 @@ CUDA tensor launches one of two kernels, chosen by :func:`route`:
 
 Each launch is counted in ``packed_layer.launches`` and, by route, in
 ``packed_layer.launches_by_route``.
+
+:func:`packed_layer_routed` is the multi-tenant scheduler's per-tenant
+layer (the reference's jnp in ``routed_packed_stacked_fn``): each packet
+carries a tenant id and reads that tenant's block of ``(T, n_out, n_words)``
+stacked tables.  It has one kernel (``packed_layer_routed`` in the same
+source) and counts its launches in ``packed_layer_routed.launches``.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ _I = ctypes.c_int
 ROUTES = ("quad", "general")
 _ENTRY = {path: f"packed_layer_{path}" for path in ROUTES}
 _SIGNATURES = {name: ([_P] * 5 + [_I, _I, _I, _P], _I) for name in _ENTRY.values()}
+_SIGNATURES["packed_layer_routed"] = ([_P] * 6 + [_I] * 4 + [_P], _I)
 
 # The quad route's limits (csrc/packed_layer.cu): a thread's 4 neurons' words
 # live in registers for these word counts, and a block of 256 threads holds
@@ -137,3 +144,96 @@ def packed_layer_plain(
     m = bitops.i32_to_u32(mask)[None, :, :]
     count = bitops.hakmem_popcount(bitops.xnor(x, w) & m).sum(-1)
     return (count >= bitops.i32_to_u32(thresholds)[None, :]).to(torch.int32)
+
+
+def _check_routed_args(words, tenant_ids, weights, mask, thresholds) -> None:
+    if words.ndim != 2 or weights.ndim != 3 or tenant_ids.ndim != 1:
+        raise ValueError(
+            "words must be (batch, n_words), tenant_ids (batch,), weights (T, n_out, n_words)")
+    n_tenants, n_out, n_words = weights.shape
+    if (words.shape[1] != n_words or tenant_ids.shape[0] != words.shape[0]
+            or mask.shape != weights.shape or thresholds.shape != (n_tenants, n_out)):
+        raise ValueError(
+            f"shape mismatch: words {tuple(words.shape)}, tenant_ids {tuple(tenant_ids.shape)}, "
+            f"weights {tuple(weights.shape)}, mask {tuple(mask.shape)}, "
+            f"thresholds {tuple(thresholds.shape)}"
+        )
+    for t in (words, tenant_ids, weights, mask, thresholds):
+        if t.dtype != torch.int32:
+            raise ValueError(f"packed_layer_routed operands are int32, got {t.dtype}")
+        if t.device != words.device:
+            raise ValueError(f"operand on {t.device}, words on {words.device}")
+    if n_tenants == 0 or n_out == 0 or n_words == 0:
+        raise ValueError(f"empty tables {tuple(weights.shape)}")
+    if tenant_ids.numel():
+        lo, hi = (int(v) for v in torch.aminmax(tenant_ids))
+        if lo < 0 or hi >= n_tenants:
+            raise ValueError(f"tenant ids span [{lo}, {hi}], outside [0, {n_tenants})")
+
+
+def packed_layer_routed(
+    words: torch.Tensor,
+    tenant_ids: torch.Tensor,
+    weights: torch.Tensor,
+    mask: torch.Tensor,
+    thresholds: torch.Tensor,
+) -> torch.Tensor:
+    """One packed layer whose tables each packet takes from its tenant's
+    block: (batch, n_words) words and (batch,) int32 tenant ids against
+    (T, n_out, n_words) weights and masks and (T, n_out) thresholds ->
+    (batch, n_out) {0,1} int32.  Raises on a tenant id outside [0, T)
+    (reading the ids back from the device to check them)."""
+    _check_routed_args(words, tenant_ids, weights, mask, thresholds)
+    if words.device.type == "cpu":
+        return packed_layer_routed_plain(words, tenant_ids, weights, mask, thresholds)
+    if words.device.type != "cuda":
+        raise ValueError(f"packed_layer_routed runs on CPU or CUDA tensors, got {words.device}")
+    _build.refuse_grad("packed_layer_routed", words, weights, mask, thresholds)
+    words, tenant_ids, weights, mask, thresholds = (
+        t.contiguous() for t in (words, tenant_ids, weights, mask, thresholds)
+    )
+    n_tenants, n_out, n_words = weights.shape
+    batch = words.shape[0]
+    if max(batch * max(n_out, n_words), weights.numel()) >= _MAX_INDEX:
+        raise ValueError(f"a batch of {batch} or a {tuple(weights.shape)} stack is beyond "
+                         "the kernel's 32-bit indices")
+    out = torch.empty((batch, n_out), dtype=torch.int32, device=words.device)
+    if batch == 0:
+        return out
+    return _launch_routed(words, tenant_ids, weights, mask, thresholds, out)
+
+
+def _launch_routed(words, tenant_ids, weights, mask, thresholds, out) -> torch.Tensor:
+    """Launch the per-tenant kernel on checked, contiguous operands."""
+    n_tenants, n_out, n_words = weights.shape
+    lib = _build.library("packed_layer", _SIGNATURES)
+    with torch.cuda.device(words.device):
+        code = lib.packed_layer_routed(
+            words.data_ptr(), tenant_ids.data_ptr(), weights.data_ptr(), mask.data_ptr(),
+            thresholds.data_ptr(), out.data_ptr(), words.shape[0], n_out, n_words, n_tenants,
+            _build.stream_of(words),
+        )
+    _build.check(lib, code, "packed_layer_routed")
+    packed_layer_routed.launches += 1
+    return out
+
+
+packed_layer_routed.launches = 0
+
+
+def packed_layer_routed_plain(
+    words: torch.Tensor,
+    tenant_ids: torch.Tensor,
+    weights: torch.Tensor,
+    mask: torch.Tensor,
+    thresholds: torch.Tensor,
+) -> torch.Tensor:
+    """The per-tenant kernel's semantics in plain PyTorch (uint32 carriers),
+    any device: each packet gathers its tenant's tables, then the packed
+    layer's count and unsigned compare."""
+    t = tenant_ids.long()
+    x = bitops.i32_to_u32(words)[:, None, :]
+    w = bitops.i32_to_u32(weights)[t]
+    m = bitops.i32_to_u32(mask)[t]
+    count = bitops.hakmem_popcount(bitops.xnor(x, w) & m).sum(-1)
+    return (count >= bitops.i32_to_u32(thresholds)[t]).to(torch.int32)

@@ -273,7 +273,8 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.core.throughput, repro_torch.core.p4gen, repro_torch.core.export, "
         "repro_torch.dataplane.plan, repro_torch.dataplane.telemetry, repro_torch.dataplane.fabric, "
         "repro_torch.obs.windows, repro_torch.obs.slo, repro_torch.tree, repro_torch.optim.adamw, "
-        "repro_torch.train.checkpoint, repro_torch.train.bnn_trainer\n"
+        "repro_torch.train.checkpoint, repro_torch.train.bnn_trainer, "
+        "repro_torch.dataplane.multitenant, repro_torch.dataplane.pcap\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad); sys.exit(1 if bad else 0)"

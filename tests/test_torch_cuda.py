@@ -699,3 +699,133 @@ def test_bnn_trainer_step_on_cuda_matches_cpu(cuda):
         torch.testing.assert_close(a.cpu()[firm], b[firm], rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(a.cpu()[~firm], b[~firm], rtol=0, atol=1e-2 * opt.lr)
     np.testing.assert_array_equal(gpu.forward_bits(cpu.eval_x), cpu.forward_bits(cpu.eval_x))
+
+
+# ---------------------------------------------------------------------------
+# The multi-tenant slice: the per-tenant packed layer, routed dispatch and
+# the SwitchScheduler on the card against the CPU.
+# ---------------------------------------------------------------------------
+
+def _routed_operands(rng, batch, tenants, n_out, n_words):
+    """Random per-tenant operands: every tenant's last neuron a never-firing
+    pad, high-bit words and weights, random ids."""
+    u32 = lambda *shape: rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+    words, weights, mask = u32(batch, n_words), u32(tenants, n_out, n_words), u32(tenants, n_out, n_words)
+    thr = rng.integers(0, 32 * n_words + 2, (tenants, n_out)).astype(np.uint32)
+    weights[:, -1], mask[:, -1], thr[:, -1] = 0, 0, 0xFFFFFFFF
+    if batch:
+        words[0] = 0xFFFFFFFF
+    ids = rng.integers(0, tenants, batch).astype(np.int32)
+    return [torch.from_numpy(a.view(np.int32)) for a in (words, ids, weights, mask, thr)]
+
+
+@pytest.mark.parametrize("tenants", [1, 3, 128])
+@pytest.mark.parametrize("n_out", [5, 13, 66])
+@pytest.mark.parametrize("n_words", [1, 2, 3, 8])
+@pytest.mark.parametrize("batch", [0, 1, 1001])
+def test_packed_layer_routed_matches_plain(cuda, tenants, n_out, n_words, batch):
+    rng = np.random.default_rng(tenants * 1000 + n_out * 10 + n_words + batch)
+    args = _routed_operands(rng, batch, tenants, n_out, n_words)
+    want = packed_layer.packed_layer_routed_plain(*args)
+    fn = packed_layer.packed_layer_routed
+    dev = [a.to(cuda) for a in args]
+    before = fn.launches
+    got = fn(*dev)
+    torch.cuda.synchronize()
+    assert fn.launches == before + int(batch > 0)
+    assert torch.equal(got.cpu(), want)
+    assert not got[:, -1].any()
+    # Misaligned views of the words and the ids.
+    for nbytes in (4, 8) if batch else ():
+        assert torch.equal(fn(_shifted(dev[0], nbytes), _shifted(dev[1], nbytes), *dev[2:]).cpu(), want)
+
+
+def test_packed_layer_routed_refuses_out_of_range_ids_and_grad(cuda):
+    args = [a.to(cuda) for a in _routed_operands(np.random.default_rng(0), 64, 3, 8, 2)]
+    fn = packed_layer.packed_layer_routed
+    for bad in (3, -1, 1 << 30):
+        ids = args[1].clone()
+        ids[17] = bad
+        before = fn.launches
+        with pytest.raises(ValueError, match=r"outside \[0, 3\)"):
+            fn(args[0], ids, *args[2:])
+        assert fn.launches == before
+    # int32 operands cannot require grad, so under grad mode the kernel
+    # launches and its output needs none; a float operand is refused.
+    with torch.enable_grad():
+        out = fn(*args)
+    assert not out.requires_grad and torch.equal(out.cpu(), packed_layer.packed_layer_routed_plain(
+        *[a.cpu() for a in args]))
+    with pytest.raises(ValueError, match="int32"):
+        fn(args[0].float().requires_grad_(True), *args[1:])
+
+
+SHAPES3 = [(16, 8, 4), (32, 16), (8, 12, 6)]
+SPECS3 = [("ddos_burst", 16, 3.0), ("flow_tuple", 32, 1.0), ("iot_telemetry", 8, 2.0)]
+
+
+def _scheduler3(**kw):
+    from repro_torch.dataplane.multitenant import SwitchScheduler
+
+    rng = np.random.default_rng(0)
+    sched = SwitchScheduler(pipeline.ChipSpec(num_elements=256, name="bigchip"), **kw)
+    for i, (shape, spec) in enumerate(zip(SHAPES3, SPECS3)):
+        params = [rng.integers(0, 2, (shape[j + 1], shape[j])).astype(np.int32) for j in range(len(shape) - 1)]
+        sched.admit(compiler.compile_bnn(params), name=f"t{i}", weight=spec[2])
+    return sched
+
+
+@pytest.mark.parametrize("backend", ["jnp", "packed"])
+@pytest.mark.parametrize("mode,layout", [("merged", "interleave"), ("merged", "concat"), ("time_sliced", None)])
+def test_scheduler_on_cuda_matches_cpu(cuda, mode, layout, backend):
+    """Routed op-table and packed dispatch (and time-sliced turns) on the
+    card give the CPU's per-tenant outputs and statistics."""
+    specs = [traffic.TenantTrafficSpec(*s) for s in SPECS3]
+    sched = _scheduler3(quantum=256, max_queue=400)
+    pair = traffic.mixed_tenant_generate(specs, 3000, seed=4)
+    kw = dict(mode=mode, merged=layout, backend=backend, chunk_size=1000)
+    gpu = sched.run(pair, device=cuda, **kw)
+    cpu = sched.run(pair, device="cpu", **kw)
+    for t in range(3):
+        a, b = gpu.stats_for(t), cpu.stats_for(t)
+        assert (a.packets, a.served, a.dropped, a.deferred, a.slices) == (
+            b.packets, b.served, b.dropped, b.deferred, b.slices)
+        np.testing.assert_array_equal(gpu.outputs_for(t), cpu.outputs_for(t))
+
+
+def test_merged_op_table_beyond_shared_memory_raises(cuda):
+    """32 tenants of benchmarks/multitenant_bench.py interleaved: 1,833
+    registers, more than one packet's share of a block's shared memory at
+    the kernel's smallest block.  The op-table dispatch refuses, naming the
+    limit and the register count, before any chunk runs; the packed
+    dispatch serves the same tenants."""
+    from repro_torch.dataplane.lowering import lower_program, peak_stage_rows
+    from repro_torch.dataplane.multitenant import SwitchScheduler
+
+    shapes = [(32, 64, 32), (16, 32, 8), (32, 16), (8, 12, 6), (16, 8, 4), (32, 32, 4)]
+    scen = ("ddos_burst", "iot_telemetry", "flow_tuple", "adversarial_bitflip", "uniform_random")
+    rng = np.random.default_rng(3)
+    progs, specs = [], []
+    for i in range(32):
+        shape = shapes[i % len(shapes)]
+        progs.append(compiler.compile_bnn(
+            [rng.integers(0, 2, (shape[j + 1], shape[j])).astype(np.int32) for j in range(len(shape) - 1)]))
+        specs.append(traffic.TenantTrafficSpec(scen[i % len(scen)], shape[0]))
+    chip = pipeline.ChipSpec(
+        num_elements=sum(p.num_elements for p in progs) + 1, phv_bits=sum(p.peak_phv_bits for p in progs),
+        max_parallel_ops=max(pipeline.MAX_FIELDS, peak_stage_rows([lower_program(p) for p in progs])),
+        name="shared")
+    sched = SwitchScheduler(chip, mode="merged")
+    for i, p in enumerate(progs):
+        sched.admit(p, name=f"t{i}")
+    num_regs = sched.merged("interleave").lowered.num_regs
+    assert num_regs == 1833
+    pair = traffic.mixed_tenant_generate(specs, 512, seed=0)
+    before = optable_exec.optable_run.launches
+    with pytest.raises(ValueError, match=rf"{num_regs} registers .* beyond the 232448 B limit"):
+        sched.run(pair, backend="jnp", device=cuda)
+    assert optable_exec.optable_run.launches == before
+    packed = sched.run(pair, backend="packed", device=cuda)
+    cpu = sched.run(pair, backend="packed", device="cpu")
+    for t in range(32):
+        np.testing.assert_array_equal(packed.outputs_for(t), cpu.outputs_for(t))

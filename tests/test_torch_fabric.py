@@ -283,7 +283,7 @@ def test_plan_run_gives_the_direct_calls_answers():
             tplan.run(fleet_of, x, plan=P(fleet=2), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         tf.run(x, plan=P(fleet=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="SwitchScheduler"):
         tplan.run(object(), x, device="cpu")
 
 
@@ -303,8 +303,10 @@ def test_backend_members_resolve_as_their_strings():
     for bad in (dict(fleet=0), dict(chunk_size=0)):
         with pytest.raises(ValueError):
             tplan.ExecutionPlan(**bad)
-    # The reference's fleet sharding and merged-table fields come with the
-    # fleet and the scheduler; until then a plan has no such options.
-    for absent in (dict(devices=4), dict(merged="concat")):
-        with pytest.raises(TypeError):
-            tplan.ExecutionPlan(**absent)
+    # The reference's fleet sharding comes with the fleet; until then a plan
+    # has no such option.  The scheduler's merged-table layout is validated.
+    with pytest.raises(TypeError):
+        tplan.ExecutionPlan(devices=4)
+    assert tplan.ExecutionPlan(merged="concat").merged == "concat"
+    with pytest.raises(ValueError, match="merged"):
+        tplan.ExecutionPlan(merged="stacked")
