@@ -8,15 +8,18 @@ What it does, in order:
    the card, bit for bit (``torch.equal``), at the shapes the main path gives
    it: ``optable_run`` on the headline model's tables for the default and the
    native-popcount chip (all six opcodes) and on FIVE_TUPLE's (the largest
-   register file), each timed; ``pack_bits_words`` and ``bitpack`` on both
+   register file), each timed, every launch on the ``shared`` route; the
+   ``global`` route, forced, on the same three, timed in turns with
+   ``shared`` on HEADLINE and FIVE_TUPLE; ``pack_bits_words`` and ``bitpack`` on both
    routes (``vec`` and ``scalar``: ragged widths, misaligned views), float32
    and bf16 with planted subnormal signs, bf16 at the LM's decode and
-   scoring shapes; ``packed_layer`` on both routes (``quad`` and
-   ``general``) on the headline model's and FIVE_TUPLE's layers and their
-   scan plans' pad neurons.  Each launch asserts its route.  The two kernels
-   are timed per chunk as the device time of a replayed CUDA graph of 16
-   chunks, the new route in turns with the first design (``scalar``,
-   ``general``) and with one packet (the launches' fixed cost), and back to
+   scoring shapes; ``packed_layer`` on its routes (``quad``, ``general``
+   and ``cached``, forced) on the headline model's and FIVE_TUPLE's layers
+   and their scan plans' pad neurons.  Each launch asserts its route.  The
+   two kernels are timed per chunk as the device time of a replayed CUDA
+   graph of 16 chunks, the new route in turns with the first design
+   (``scalar``, ``general``; and ``cached``) and with one packet (the
+   launches' fixed cost), and back to
    back with events; bf16 ``bitpack`` as a graph of one decode layer's seven
    launches (in turns with the float32 cast and launch it replaced) and at
    the scoring shapes, over inputs larger than the L2 cache;
@@ -55,17 +58,29 @@ What it does, in order:
       packets are bit-exact with its own ``executor.execute`` on the card,
       and on the first chunk with the interpreter and the BNN oracle; per
       tenant ``packets == served + dropped`` with no drop; each run's
-      launches are counted from zero and must be the ones its path makes;
-   b. 32 tenants in ``merged``/``interleave`` on the op-table backend must
-      raise the ``ValueError`` of the op-table kernel's shared memory (1,833
-      registers);
+      launches are counted from zero and must be the ones its path makes,
+      every ``optable_run`` launch on the ``shared`` route, every
+      ``packed_layer_routed`` launch on ``quad`` and each ``packed_layer``
+      launch on its layer's route;
+   b. 32 tenants (1,833 merged registers, past the ``shared`` route) in
+      ``merged``/``interleave`` and ``merged``/``concat`` on the op-table
+      backend, every launch on the ``global`` route, and on the packed
+      backend beside them (the ``concat`` merge's 916 x 32-word layer on
+      ``packed_layer``'s ``cached`` route); 128 tenants (7,081 registers) in
+      ``merged``/``interleave`` on the op-table backend over the first
+      MT_WIDE_OPTABLE_PACKETS packets; each tenant bit-exact as in a;
    c. three tenants, one replaying a synthetic capture written as pcap and
       pcapng and read back, in ``merged`` and ``time_sliced`` on both
       backends; the capture tenant is bit-exact with its BNN oracle.
    Before the runs, ``packed_layer_routed`` is held against its plain version
-   on the 8- and 128-tenant stacks at chunks of 1024 and 32768 (and timed
-   there as a replayed graph of 16 chunks), ``optable_run`` and
-   ``packed_layer`` on the 8-tenant merged tables;
+   on the 8-, 32- and 128-tenant stacks at chunks of 1024 and 32768 on both
+   routes (``quad``, ``general``; timed there in turns as a replayed graph
+   of 16 chunks), and every merged program that a run serves against its
+   plain versions: ``optable_run`` on the 8-tenant merges (``shared``), on
+   both 32-tenant layouts at chunks of 1024 and 32768 and on the 128-tenant
+   ``interleave`` at 1024 (``global``), each timed with its bound, and
+   ``packed_layer`` on each block-diagonal layer of the 8- and 32-tenant
+   merges on the route it takes (``cached`` timed with its bound);
 8. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
    fixed seed):
    a. holds ``bnn_matmul_packed`` (bit for bit, at the decode and prefill
@@ -93,7 +108,8 @@ What it does, in order:
       layer, every one on the tma route), and holds a 2-layer float32
       copy's flash logits against its plain-attention logits;
 9. prints one JSON line of per-kernel numbers, then the status line.  The
-   packet kernels' ``launches`` sum their ``launches_by_path``.
+   packet kernels' ``launches`` sum their ``launches_by_path``, and
+   ``launches_by_route`` splits the same launches by route.
 
 Every path is driven with all launch counts zeroed just before it and read
 just after.  Serving and scoring run under ``torch.inference_mode()``.  Any failure raises, so the script exits non-zero; it also exits
@@ -165,8 +181,11 @@ MT_SHAPES = ((32, 64, 32), (16, 32, 8), (32, 16), (8, 12, 6), (16, 8, 4), (32, 3
 MT_SCENARIOS = ("ddos_burst", "iot_telemetry", "flow_tuple", "adversarial_bitflip", "uniform_random")
 MT_WEIGHTS = (3.0, 2.0, 1.0, 1.0, 2.0, 1.0)
 MT_WIDE = 128        # tenants of the widest interleaved packed run
-MT_OVER = 32         # tenants whose merged register file overflows the op-table kernel
+MT_OVER = 32         # tenants whose merged register file is past the shared route
 MT_OVER_REGS = 1833
+# Packets of the 128-tenant op-table run: a chunk of 1024 takes about 9 ms
+# on the global route, so the whole stream would add 10 s.
+MT_WIDE_OPTABLE_PACKETS = 1 << 18
 # examples/pcap_replay.py section 5: a 20,000-packet capture as one tenant of
 # three, twice its length served in chunks of 4096.
 PCAP_PACKETS = 20_000
@@ -202,18 +221,6 @@ def time_ms(fn, *args, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_in_turns(kernel, library, iters: int = 20) -> tuple[float, float]:
-    """Mean ms of ``kernel`` and of ``library`` (each a no-argument call),
-    timed in turns on one card (kernel, library, library, kernel) so that a
-    drift of clock or power lands on both alike."""
-    k1 = time_ms(kernel, iters=iters)
-    l1 = time_ms(library, iters=iters)
-    l2 = time_ms(library, iters=iters)
-    k2 = time_ms(kernel, iters=iters)
-    print(f"    in turns: kernel {k1}, {k2} ms; library {l1}, {l2} ms")
-    return (k1 + k2) / 2, (l1 + l2) / 2
-
-
 def bound_ms(nbytes: float, ops: float, rate: float = INT32_OPS_PER_S) -> tuple[float, str]:
     """Least time the card could take: bytes over HBM rate vs operations over
     their peak ``rate`` (default the INT32 rate), whichever is larger."""
@@ -245,34 +252,61 @@ def build_kernels() -> None:
                 print(f"  {name}: {line.strip()}")
 
 
+def optable_bound(lowered, plan, batch: int) -> tuple[float, str]:
+    """``bound_ms`` of one program over ``batch`` packets, whatever the
+    route: the register file read and written once and the records read
+    once; an ALU operation, the mask and the write-back per true row."""
+    return bound_ms(2 * lowered.num_regs * batch * 4 + plan.records.nbytes, 3 * lowered.num_ops * batch)
+
+
 def check_optable(dev, programs: dict) -> dict:
     """``optable_run`` against its plain version on each program's parsed
-    chunk, each timed; the record holds the headline model's (the main
+    chunk, on the route it takes (``shared``: every one fits) and on the
+    ``global`` route, forced, each timed; HEADLINE and FIVE_TUPLE time both
+    routes in turns.  The record holds the headline model's (the main
     path's) numbers.  The tables come from the executor's cache, as on the
     main path, so their plan was made from the host's copy."""
+    run = optable_exec.optable_run
     err, times = 0, {}
     for label, (lowered, packets) in programs.items():
         t = executor._device_tables(lowered, dev)
         regs = executor.parse_packets(packets, *t.io[:2], num_regs=lowered.num_regs)
-        plan, _ = optable_exec.prepare((*t.ops, t.first_write), lowered.num_regs)
+        tables = (*t.ops, t.first_write)
+        plan, records = optable_exec.prepare(tables, lowered.num_regs)
         threads = optable_exec.plan_threads(plan, lowered.num_regs)
+        want = optable_exec.optable_run_plain(regs, *tables)
         err = max(err, same(
             f"optable_run {label} ({lowered.num_regs} regs x {CHUNK} packets, {int(plan.rows.sum())} "
             f"true rows of {lowered.opcode.size}, {int(plan.deferred.sum())} deferred, scratch "
-            f"{plan.max_deferred}, {threads} threads/block)",
-            optable_exec.optable_run(regs, *t.ops, t.first_write),
-            optable_exec.optable_run_plain(regs, *t.ops, t.first_write),
-        ))
-        times[label] = time_ms(optable_exec.optable_run, regs, *t.ops, t.first_write)
-        print(f"    optable_run {label}: {times[label]} ms per chunk of {CHUNK}")
+            f"{plan.max_deferred}, {threads} threads/block, shared)",
+            routed(run, "shared", lambda: run(regs, *tables)), want))
+        err = max(err, same(f"optable_run {label} (global, forced)",
+                            routed(run, "global", lambda: optable_exec._launch(regs, plan, records, "global")),
+                            want))
+        if label == "HEADLINE/rmt+popcnt32":
+            times[label] = time_ms(run, regs, *tables)
+            print(f"    optable_run {label}: {times[label]} ms per chunk of {CHUNK}")
+            continue
+        t_route = in_turns({path: (lambda path=path: optable_exec._launch(regs, plan, records, path))
+                            for path in optable_exec.ROUTES})
+        times[label] = t_route["shared"]
+        times[f"{label} global"] = t_route["global"]
+        print(f"    optable_run {label}: shared {t_route['shared']} ms, global {t_route['global']} ms per "
+              f"chunk of {CHUNK}; bound {optable_bound(lowered, plan, CHUNK)[0]} ms")
         if label == "HEADLINE/rmt":
-            plain = time_ms(optable_exec.optable_run_plain, regs, *t.ops, t.first_write, iters=3)
-            nbytes = 2 * lowered.num_regs * CHUNK * 4 + plan.records.nbytes
-            b_ms, b_by = bound_ms(nbytes, 3 * lowered.num_ops * CHUNK)  # ALU, mask, write-back per true row
+            plain = time_ms(optable_exec.optable_run_plain, regs, *tables, iters=3)
+            b_ms, b_by = optable_bound(lowered, plan, CHUNK)
+            # One packet walks every row as a full chunk's packets do.
+            one = regs[:, :1].contiguous()
+            times["one packet"] = time_ms(lambda: optable_exec._launch(one, plan, records, "shared"))
+            print(f"    optable_run {label}, shared, one packet: {times['one packet']} ms")
     return dict(
         source="src/repro_torch/csrc/optable_exec.cu",
         replaces="src/repro/kernels/optable_exec.py:87",
         max_abs_err=err, ms=times["HEADLINE/rmt"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        ms_global=times["HEADLINE/rmt global"], ms_one_packet=times["one packet"],
+        ms_five_tuple=times["FIVE_TUPLE/rmt"],
+        ms_five_tuple_global=times["FIVE_TUPLE/rmt global"],
     )
 
 
@@ -411,12 +445,13 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
     (quad route), the scan plan's padded layers (pad neurons must never
     fire), FIVE_TUPLE's layers (4, 2 and 1 words; its 2-neuron output layer
     takes the general route) and its scan plan, and every main-path layer on
-    the general route.
+    the general and cached routes, forced.
 
     Timed per chunk (the main path's two launches) as the device time of a
     replayed CUDA graph of CHUNK_REPS chunks, the quad route in turns with the
-    general route (the first design: a thread per output) and with one
-    packet, and back to back with events."""
+    general route (the first design: a thread per output), the cached route
+    (the same kernel, tables not staged) and with one packet, and back to
+    back with events."""
     fn = packed_layer.packed_layer
 
     def operands(weights, mask, thresholds, h):
@@ -429,7 +464,7 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
     for pl, h in zip(lp.packed.layers, layer_inputs):
         args = operands(pl.weights, pl.mask, pl.thresholds, h)
         want = packed_layer.packed_layer_plain(*args)
-        for path in ("quad", "general"):
+        for path in packed_layer.ROUTES:
             out = torch.empty_like(want)
             err = max(err, same(f"packed_layer {pl.n_in}->{pl.n_out} ({CHUNK} packets, {path})",
                                 routed(fn, path, lambda: packed_layer._launch(*args, out, path)), want))
@@ -479,15 +514,17 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
     # CHUNK_REPS chunks a graph; the same launches on one packet give their
     # fixed cost in a graph.
     t = graphs_in_turns({name: repeated(call, CHUNK_REPS) for name, call in (
-        ("quad", chunk("quad")), ("general", chunk("general")), ("quad, 1 packet", chunk("quad", 1)))})
+        ("quad", chunk("quad")), ("general", chunk("general")), ("cached", chunk("cached")),
+        ("quad, 1 packet", chunk("quad", 1)))})
     t = {name: v / CHUNK_REPS for name, v in t.items()}
     print(f"  packed_layer per chunk of {CHUNK} (2 launches): graph replay quad {t['quad']} ms, "
-          f"general {t['general']} ms (one packet: {t['quad, 1 packet']} ms); back to back (events) "
-          f"{back_to_back} ms; bound {b_ms} ms ({b_by})")
+          f"general {t['general']} ms, cached {t['cached']} ms (one packet: {t['quad, 1 packet']} ms); "
+          f"back to back (events) {back_to_back} ms; bound {b_ms} ms ({b_by})")
     return dict(
         source="src/repro_torch/csrc/packed_layer.cu",
         replaces="src/repro/dataplane/executor.py:213",
-        max_abs_err=err, ms=t["quad"], old_route_ms=t["general"], back_to_back_ms=back_to_back,
+        max_abs_err=err, ms=t["quad"], old_route_ms=t["general"], cached_route_ms=t["cached"],
+        back_to_back_ms=back_to_back,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
     )
 
@@ -501,8 +538,9 @@ def drive_main_path(dev, lp, records: dict) -> dict:
         "packed_layer": packed_layer.packed_layer,
     }
     path_kernels = {"jnp": ("optable_run",), "packed": ("pack_bits_words", "packed_layer")}
-    # The packed backend's launches on HEADLINE all take the new routes.
-    path_routes = {"pack_bits_words": "vec", "packed_layer": "quad"}
+    # The packed backend's launches on HEADLINE all take the new routes, the
+    # op-table backend's the shared route.
+    path_routes = {"pack_bits_words": "vec", "packed_layer": "quad", "optable_run": "shared"}
     results = {}
     for backend, label in (("jnp", "op-table"), ("packed", "packed")):
         zero_counts()
@@ -530,9 +568,24 @@ def drive_main_path(dev, lp, records: dict) -> dict:
 
 
 def count_path(records: dict, path: str, launches: dict) -> None:
-    """Add one path's launch counts to the records' ``launches_by_path``."""
+    """Add one path's launch counts to the records' ``launches_by_path``,
+    and its launches by route (read now, right after the path) to their
+    ``launches_by_route``."""
     for name, n in launches.items():
         records[name].setdefault("launches_by_path", {})[path] = n
+        by_route = getattr(COUNTED[name], "launches_by_route", None)
+        if by_route:
+            total = records[name].setdefault("launches_by_route", dict.fromkeys(by_route, 0))
+            for route, k in by_route.items():
+                total[route] += k
+
+
+def check_optable_route(label: str, launches: dict, path: str = "shared") -> None:
+    """Fail unless every ``optable_run`` launch of a path took ``path``."""
+    n = launches.get("optable_run", 0)
+    by_route = optable_exec.optable_run.launches_by_route
+    if by_route[path] != n:
+        raise AssertionError(f"{label}: optable_run launches by route {by_route}, expected all {n} on {path}")
 
 
 def check_stacked_planes(dev, prog, lp, first: torch.Tensor, records: dict) -> None:
@@ -578,6 +631,7 @@ def drive_fabric(dev, prog, params, records: dict) -> None:
     sr = executor.execute_stream(lp, (packets[i:i + CHUNK] for i in range(0, PACKETS, CHUNK)),
                                  chunk_size=CHUNK, collect=True, device=dev)
     launches = read_counts()
+    check_optable_route("fabric baseline", launches)
     if not np.array_equal(sr.outputs, want):
         raise AssertionError("fabric: execute_stream of the unsliced program disagrees with execute")
     count_path(records, "fabric baseline, one switch (execute_stream)", launches)
@@ -600,6 +654,7 @@ def drive_fabric(dev, prog, params, records: dict) -> None:
             launches = read_counts()
             if launches != expect:
                 raise AssertionError(f"fabric {mode} {label}: launches {launches}, expected {expect}")
+            check_optable_route(f"fabric {mode} {label}", launches)
             if not np.array_equal(res.outputs, want):
                 bad = int((res.outputs != want).any(axis=1).sum())
                 raise AssertionError(f"fabric {mode} {label}: {bad} packets disagree with executor.execute")
@@ -637,6 +692,7 @@ def drive_train_deploy(dev, records: dict) -> None:
         if rep.hops != TRAIN_HOPS or not rep.ok or rep.reference_mismatches != 0:
             raise AssertionError(f"train -> deploy: {rep.summary()} (expected {TRAIN_HOPS} hops, 0 mismatches)")
     launches = read_counts()
+    check_optable_route("train -> deploy", launches)
     count_path(records, "train -> deploy (verify_roundtrip)", launches)
     print(f"train -> deploy: launches {launches}")
 
@@ -730,10 +786,38 @@ def expected_launches(sched: SwitchScheduler, res, backend: str, layout) -> dict
     return {"pack_bits_words": n, "packed_layer": n}
 
 
+def layer_routes(layers, runs: int) -> dict:
+    """``packed_layer``'s launches by route when each of ``layers`` runs
+    ``runs`` times on words it allocates (so aligned)."""
+    want = dict.fromkeys(packed_layer.ROUTES, 0)
+    for pl in layers:
+        path = packed_layer.route(torch.empty((0, pl.n_words), dtype=torch.int32),
+                                  torch.empty(tuple(pl.weights.shape), dtype=torch.int32))
+        want[path] += runs
+    return want
+
+
+def expected_layer_routes(sched: SwitchScheduler, res, layout) -> dict:
+    """``packed_layer``'s launches by route on a packed run that is not
+    interleaved: the block-diagonal merged layers per chunk (plus the warm
+    call), or each tenant's layers per turn (plus its warm call)."""
+    if res.mode == "merged":
+        return layer_routes(sched.merged(layout).lowered.packed.layers, res.chunks + 1)
+    want = dict.fromkeys(packed_layer.ROUTES, 0)
+    for t in sched.tenants:
+        slices = res.stats_for(t.tid).slices
+        for path, n in layer_routes(t.lowered.packed.layers, slices + 1 if slices else 0).items():
+            want[path] += n
+    return want
+
+
 def serve(dev, label: str, sched: SwitchScheduler, tids, bits, wants, records: dict, *, mode, layout,
-          backend, chunk=MT_CHUNK):
+          backend, chunk=MT_CHUNK, optable_route="shared"):
     """One scheduler run with every launch count zeroed just before and read
-    just after; holds each tenant to ``wants`` and to conservation."""
+    just after; holds each tenant to ``wants`` and to conservation, every
+    ``optable_run`` launch to ``optable_route``, every
+    ``packed_layer_routed`` launch to the quad route and ``packed_layer``'s
+    launches to each layer's route."""
     torch.cuda.synchronize()
     zero_counts()
     res = sched.run(arrivals(tids, bits, chunk), mode=mode, merged=layout, backend=backend,
@@ -742,6 +826,14 @@ def serve(dev, label: str, sched: SwitchScheduler, tids, bits, wants, records: d
     expect = expected_launches(sched, res, backend, layout)
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+    check_optable_route(label, launches, optable_route)
+    by_route = packed_layer.packed_layer_routed.launches_by_route
+    if by_route["quad"] != launches.get("packed_layer_routed", 0):
+        raise AssertionError(f"{label}: packed_layer_routed launches by route {by_route}, expected all on quad")
+    layer_by_route = dict(packed_layer.packed_layer.launches_by_route)
+    if "packed_layer" in launches and layer_by_route != expected_layer_routes(sched, res, layout):
+        raise AssertionError(f"{label}: packed_layer launches by route {layer_by_route}, expected "
+                             f"{expected_layer_routes(sched, res, layout)}")
     for st in res.tenants:
         if st.packets != st.served + st.dropped or st.dropped or st.packets != int((tids == st.tid).sum()):
             raise AssertionError(f"{label} tenant {st.tid}: {st.packets} arrived, {st.served} served, "
@@ -755,48 +847,89 @@ def serve(dev, label: str, sched: SwitchScheduler, tids, bits, wants, records: d
     print(f"{label}: {res.packets} packets, {len(res.tenants)} tenants, {res.seconds} s -> "
           f"{res.packets_per_second} pkt/s; per tenant min {min(pps)} max {max(pps)} pkt/s; "
           f"{dispatches} dispatches, {1e6 * res.seconds / dispatches} us per dispatch; warm-up "
-          f"{res.warmup_seconds} s; launches {launches}")
+          f"{res.warmup_seconds} s; launches {launches}"
+          + (f"; optable_run on {optable_route}" if "optable_run" in launches else "")
+          + (f"; packed_layer by route {layer_by_route}" if "packed_layer" in launches else ""))
     return res
 
 
-def check_merged_kernels(dev, sched: SwitchScheduler, tids, bits, records: dict) -> None:
-    """``optable_run`` on each merged layout's tables over one chunk's
-    routed registers, and ``packed_layer`` on the block-diagonal merged
-    layers (words scattered from the routed bits), each against its plain
-    version.  Not counted as main-path launches."""
+def check_merged_kernels(dev, count: int, sched: SwitchScheduler, tids, bits, records: dict, *,
+                         layouts=("interleave", "concat"), rows=(MT_CHUNK,), path: str = "shared",
+                         layers: bool = True) -> None:
+    """``optable_run`` on each merged layout's tables over the mixed
+    stream's first packets routed into the merged register file, at each of
+    ``rows`` packets: it must take route ``path`` and equal its plain
+    version, and it is timed there with its bound (the same work whatever
+    the route).  With ``layers``, ``packed_layer`` on the block-diagonal
+    merged layers (words scattered from the routed bits of the first
+    MT_CHUNK packets) on the route the wrapper takes, against its plain
+    version; a layer on the cached route is timed with its bound.  Not
+    counted as main-path launches."""
     idx = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(dev)  # noqa: E731
-    d_tids, d_bits = torch.from_numpy(tids).to(dev), torch.from_numpy(bits).to(dev)
-    for layout in ("interleave", "concat"):
+    run = optable_exec.optable_run
+    rec, layer_rec = records["optable_run"], records["packed_layer"]
+    for layout in layouts:
         mp = sched.merged(layout)
         lp = mp.lowered
-        regs = executor.parse_packets_routed(d_bits, d_tids, idx(mp.in_slot), idx(mp.in_shift),
-                                             idx(mp.in_valid), num_regs=lp.num_regs)
         t = executor._device_tables(lp, dev)
         plan, _ = optable_exec.prepare((*t.ops, t.first_write), lp.num_regs)
-        err = same(f"optable_run merged {layout} ({lp.num_regs} regs, {lp.opcode.shape} table, scratch "
-                   f"{plan.max_deferred}, {optable_exec.plan_threads(plan, lp.num_regs)} threads/block, "
-                   f"{len(tids)} packets)",
-                   optable_exec.optable_run(regs, *t.ops, t.first_write),
-                   optable_exec.optable_run_plain(regs, *t.ops, t.first_write))
-        records["optable_run"]["max_abs_err"] = max(records["optable_run"]["max_abs_err"], err)
+        if optable_exec.route(plan, lp.num_regs) != path:
+            raise AssertionError(f"{count} tenants merged {layout}: optable_run routes to "
+                                 f"{optable_exec.route(plan, lp.num_regs)}, not {path}")
+        for n in rows:
+            d_tids, d_bits = torch.from_numpy(tids[:n]).to(dev), torch.from_numpy(bits[:n]).to(dev)
+            regs = executor.parse_packets_routed(d_bits, d_tids, idx(mp.in_slot), idx(mp.in_shift),
+                                                 idx(mp.in_valid), num_regs=lp.num_regs)
+            err = same(f"optable_run merged {layout}, {count} tenants ({lp.num_regs} regs, {lp.opcode.shape} "
+                       f"table, {int(plan.rows.sum())} true rows, scratch {plan.max_deferred}, {n} packets, "
+                       f"{path})",
+                       routed(run, path, lambda: run(regs, *t.ops, t.first_write)),
+                       optable_exec.optable_run_plain(regs, *t.ops, t.first_write))
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            ms = time_ms(run, regs, *t.ops, t.first_write, iters=10)
+            b_ms, b_by = optable_bound(lp, plan, n)
+            key = f"{count}_tenants_{layout}_{path}" + ("" if n == CHUNK else f"_chunk_{n}")
+            rec[f"ms_{key}"], rec[f"bound_ms_{key}"] = ms, b_ms
+            print(f"    optable_run merged {layout}, {count} tenants, {path}: {ms} ms per chunk of {n}; "
+                  f"bound {b_ms} ms ({b_by})")
+        if not layers:
+            continue
+        n = MT_CHUNK
+        d_tids, d_bits = torch.from_numpy(tids[:n]).to(dev), torch.from_numpy(bits[:n]).to(dev)
         h = executor.route_bits_in(d_bits, d_tids, idx(mp.packed_in_bit), idx(mp.in_valid),
                                    total_bits=lp.packed.input_bits)
+        fn = packed_layer.packed_layer
         for li, pl in enumerate(lp.packed.layers):
             words = executor._scatter_words(h, idx(pl.in_word), idx(pl.in_shift), pl.n_words)
             args = (words, executor._i32(pl.weights).to(dev), executor._i32(pl.mask).to(dev),
                     executor._i32(pl.thresholds).to(dev))
-            h = packed_layer.packed_layer(*args)
-            err = same(f"packed_layer merged {layout} layer {li} ({pl.n_out} out, {pl.n_words} words, "
-                       f"{packed_layer.route(*args[:2])})", h, packed_layer.packed_layer_plain(*args))
-            records["packed_layer"]["max_abs_err"] = max(records["packed_layer"]["max_abs_err"], err)
+            layer_path = packed_layer.route(*args[:2])
+            if count == MT_OVER and li == 0 and layer_path != "cached":
+                raise AssertionError(f"{count} tenants merged {layout}: the {pl.n_out} x {pl.n_words}-word "
+                                     f"block-diagonal layer routes to {layer_path}, not cached")
+            h = routed(fn, layer_path, lambda: fn(*args))
+            err = same(f"packed_layer merged {layout}, {count} tenants, layer {li} ({pl.n_out} out, "
+                       f"{pl.n_words} words, {n} packets, {layer_path})", h, packed_layer.packed_layer_plain(*args))
+            layer_rec["max_abs_err"] = max(layer_rec["max_abs_err"], err)
+            if layer_path == "cached":
+                ms = time_ms(fn, *args)
+                (b, nw), n_out = words.shape, pl.n_out
+                b_ms, b_by = bound_ms((b * nw + 2 * n_out * nw + n_out + b * n_out) * 4, b * n_out * (5 * nw + 1))
+                key = f"cached_{count}_tenants_{layout}_layer_{li}_chunk_{n}"
+                layer_rec[f"ms_{key}"], layer_rec[f"bound_ms_{key}"] = ms, b_ms
+                print(f"    packed_layer merged {layout}, {count} tenants, layer {li} ({pl.n_out} x {pl.n_words} "
+                      f"words), cached: {ms} ms per chunk of {n}; bound {b_ms} ms ({b_by})")
 
 
 def check_packed_layer_routed(dev, pools: dict) -> dict:
     """``packed_layer_routed`` against its plain version on each pool's
     stacked layers (``executor.stack_tenant_layers``), the words packed from
-    the mixed stream's first packets, at chunks of MT_CHUNK and CHUNK; pad
-    neurons must never fire.  Timed per chunk (all of a chunk's layers) as
-    the device time of a replayed CUDA graph of CHUNK_REPS chunks."""
+    the mixed stream's first packets, at chunks of MT_CHUNK and CHUNK, on the
+    route the wrapper takes (``quad``: every stacked layer has 4k neurons and
+    1 or 2 words) and on ``general``, forced; pad neurons must never fire.
+    ``pools`` holds every pool whose interleaved packed run is served.
+    Both routes are timed per chunk (all of a chunk's layers) in turns as the
+    device time of a replayed CUDA graph of CHUNK_REPS chunks."""
     fn, plain = packed_layer.packed_layer_routed, packed_layer.packed_layer_routed_plain
     err = 0
     chunks = {}
@@ -810,19 +943,23 @@ def check_packed_layer_routed(dev, pools: dict) -> dict:
             for li, (w, thr, m, nw) in enumerate(tables):
                 h = torch.nn.functional.pad(h, (0, nw * 32 - h.shape[1])) if h.shape[1] < nw * 32 else h[:, :nw * 32]
                 words = bitpack.pack_bits_words(h)
-                out = fn(words, ids, w, m, thr)
+                want = plain(words, ids, w, m, thr)
+                out = routed(fn, "quad", lambda: fn(words, ids, w, m, thr))
+                general = routed(fn, "general", lambda: packed_layer._launch_routed(
+                    words, ids, w, m, thr, torch.empty_like(want), "general"))
                 pads = (thr == -1).sum(1)
-                err = max(err, same(f"packed_layer_routed {count} tenants, layer {li} ({rows} packets, tables "
-                                    f"{tuple(w.shape)}, {int(pads.sum())} pad neurons)",
-                                    out, plain(words, ids, w, m, thr)))
+                for path, got in (("quad", out), ("general", general)):
+                    err = max(err, same(f"packed_layer_routed {count} tenants, layer {li} ({rows} packets, "
+                                        f"tables {tuple(w.shape)}, {int(pads.sum())} pad neurons, {path})",
+                                        got, want))
                 if (out.bool() & (thr == -1)[ids.long()]).any():
-                    raise AssertionError(f"packed_layer_routed: a pad neuron (threshold 0xFFFFFFFF) fired")
+                    raise AssertionError("packed_layer_routed: a pad neuron (threshold 0xFFFFFFFF) fired")
                 launches.append((words, ids, w, m, thr, torch.empty_like(out)))
                 h = out
             chunks[count, rows] = launches
-    t = graphs_in_turns({f"{count} tenants, chunk {rows}": repeated(
-        lambda ls=ls: [packed_layer._launch_routed(*a) for a in ls], CHUNK_REPS)
-        for (count, rows), ls in chunks.items()})
+    t = graphs_in_turns({f"{count} tenants, chunk {rows}, {path}": repeated(
+        lambda ls=ls, path=path: [packed_layer._launch_routed(*a, path) for a in ls], CHUNK_REPS)
+        for (count, rows), ls in chunks.items() for path in packed_layer.ROUTED_ROUTES})
     per_chunk = {name: v / CHUNK_REPS for name, v in t.items()}
     nbytes = ops = 0.0
     for words, ids, w, m, thr, out in chunks[8, CHUNK]:
@@ -834,13 +971,14 @@ def check_packed_layer_routed(dev, pools: dict) -> dict:
     print(f"  packed_layer_routed per chunk (all layers), graph replay: "
           + ", ".join(f"{name} {v} ms" for name, v in per_chunk.items())
           + f"; bound (8 tenants, chunk {CHUNK}) {b_ms} ms ({b_by}); plain {plain_ms} ms")
+    quad = lambda count, rows: per_chunk[f"{count} tenants, chunk {rows}, quad"]  # noqa: E731
     return dict(
         source="src/repro_torch/csrc/packed_layer.cu",
         replaces="src/repro/dataplane/executor.py:839",
-        max_abs_err=err, ms=per_chunk[f"8 tenants, chunk {CHUNK}"],
-        ms_chunk_1024=per_chunk[f"8 tenants, chunk {MT_CHUNK}"],
-        ms_128_tenants=per_chunk[f"{MT_WIDE} tenants, chunk {CHUNK}"],
-        ms_128_tenants_chunk_1024=per_chunk[f"{MT_WIDE} tenants, chunk {MT_CHUNK}"],
+        max_abs_err=err, ms=quad(8, CHUNK), old_route_ms=per_chunk[f"8 tenants, chunk {CHUNK}, general"],
+        ms_chunk_1024=quad(8, MT_CHUNK), ms_128_tenants=quad(MT_WIDE, CHUNK),
+        ms_32_tenants=quad(MT_OVER, CHUNK), ms_32_tenants_chunk_1024=quad(MT_OVER, MT_CHUNK),
+        ms_128_tenants_chunk_1024=quad(MT_WIDE, MT_CHUNK), route_ms=per_chunk,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
     )
 
@@ -878,17 +1016,25 @@ def drive_capture_tenants(dev, records: dict) -> None:
 def drive_multitenant(dev, records: dict) -> None:
     """The multi-tenant phase (module docstring, step 7)."""
     pools = {}
-    for count in (8, MT_WIDE):
+    for count in (8, MT_WIDE, MT_OVER):
         t0 = time.perf_counter()
         pool = tenant_pool(count)
         tids, bits = traffic.mixed_tenant_generate(pool.specs, MT_PACKETS, seed=count)
         pools[count] = (pool, tids, bits)
         print(f"multi-tenant pool of {count}: programs and {MT_PACKETS} mixed packets in "
               f"{time.perf_counter() - t0} s")
-    sched8 = scheduler(pools[8][0], quantum=MT_CHUNK)
-    check_merged_kernels(dev, sched8, pools[8][1][:MT_CHUNK], pools[8][2][:MT_CHUNK], records)
+    scheds = {count: scheduler(pool, quantum=MT_CHUNK) for count, (pool, _, _) in pools.items()}
+    sched8 = scheds[8]
+    # Every merged program that is served, held against its plain versions:
+    # 8 tenants on the shared route; 32 in both layouts and 128 interleaved
+    # (op-table only) past it, on the global route.
+    check_merged_kernels(dev, 8, sched8, *pools[8][1:], records)
+    check_merged_kernels(dev, MT_OVER, scheds[MT_OVER], *pools[MT_OVER][1:], records,
+                         rows=(MT_CHUNK, CHUNK), path="global")
+    check_merged_kernels(dev, MT_WIDE, scheds[MT_WIDE], *pools[MT_WIDE][1:], records,
+                         layouts=("interleave",), path="global", layers=False)
     records["packed_layer_routed"] = check_packed_layer_routed(
-        dev, {c: ([p.lower() for p in pool.progs], tids, bits) for c, (pool, tids, bits) in pools.items()})
+        dev, {c: ([p.lower() for p in pools[c][0].progs], *pools[c][1:]) for c in (8, MT_WIDE, MT_OVER)})
 
     pool, tids, bits = pools[8]
     wants = tenant_wants(dev, pool, tids, bits, MT_CHUNK)
@@ -900,26 +1046,32 @@ def drive_multitenant(dev, records: dict) -> None:
     print(sched8.telemetry().render())
 
     pool, tids, bits = pools[MT_WIDE]
-    wants = tenant_wants(dev, pool, tids, bits, MT_CHUNK)
-    wide = scheduler(pool, quantum=MT_CHUNK)
-    serve(dev, f"{MT_WIDE} tenants, merged/interleave, packed", wide, tids, bits, wants, records,
+    wide_wants = tenant_wants(dev, pool, tids, bits, MT_CHUNK)
+    wide = scheds[MT_WIDE]
+    serve(dev, f"{MT_WIDE} tenants, merged/interleave, packed", wide, tids, bits, wide_wants, records,
           mode="merged", layout="interleave", backend="packed")
 
-    pool = tenant_pool(MT_OVER)
-    over = scheduler(pool, mode="merged")
+    # Past the shared route: 32 tenants' merged register file (1,833
+    # registers) in both layouts on both backends, and 128 tenants' (7,081)
+    # interleaved on the op-table backend over the stream's first packets.
+    pool, tids, bits = pools[MT_OVER]
+    wants = tenant_wants(dev, pool, tids, bits, MT_CHUNK)
+    over = scheds[MT_OVER]
     num_regs = over.merged("interleave").lowered.num_regs
-    zero_counts()
-    try:
-        over.run(traffic.mixed_tenant_generate(pool.specs, MT_CHUNK, seed=MT_OVER), backend="jnp",
-                 chunk_size=MT_CHUNK, device=dev)
-    except ValueError as exc:
-        if f"{num_regs} registers" not in str(exc) or str(_build.MAX_SHARED_BYTES) not in str(exc):
-            raise
-        print(f"{MT_OVER} tenants, merged/interleave, op-table: {num_regs} registers; refused as it must be: {exc}")
-    else:
-        raise AssertionError(f"{MT_OVER} tenants ({num_regs} registers) ran on the op-table kernel")
-    if num_regs != MT_OVER_REGS or read_counts():
-        raise AssertionError(f"{MT_OVER} tenants: {num_regs} registers, launches {read_counts()}")
+    if num_regs != MT_OVER_REGS:
+        raise AssertionError(f"{MT_OVER} tenants merge to {num_regs} registers, not {MT_OVER_REGS}")
+    for layout in ("interleave", "concat"):
+        for backend in ("jnp", "packed"):
+            serve(dev, f"{MT_OVER} tenants, merged/{layout}, {'packed' if backend == 'packed' else 'op-table'}",
+                  over, tids, bits, wants, records, mode="merged", layout=layout, backend=backend,
+                  optable_route="global")
+    _, tids, bits = pools[MT_WIDE]
+    head = tids[:MT_WIDE_OPTABLE_PACKETS]
+    # A tenant's outputs on a prefix of the stream are the first of its own.
+    prefix = [want[:int((head == t).sum())] for t, want in enumerate(wide_wants)]
+    serve(dev, f"{MT_WIDE} tenants, merged/interleave, op-table ({len(head)} packets)", wide, head,
+          bits[:len(head)], prefix, records, mode="merged", layout="interleave", backend="jnp",
+          optable_route="global")
     drive_capture_tenants(dev, records)
 
 
@@ -999,17 +1151,22 @@ def repeated(fn, reps: int):
     return lambda: [fn() for _ in range(reps)]
 
 
+def in_turns(fns: dict, what: str = "in turns", iters: int = 20) -> dict:
+    """Mean ms of each no-argument call, timed in turns (each in order, then
+    in reverse order) on one card."""
+    times = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        times[name].append(time_ms(fns[name], iters=iters))
+    for name, ts in times.items():
+        print(f"    {what}: {name} {ts[0]}, {ts[1]} ms")
+    return {name: sum(ts) / len(ts) for name, ts in times.items()}
+
+
 def graphs_in_turns(fns: dict, iters: int = 20) -> dict:
     """Mean ms of one replay of a CUDA graph of each no-argument call, timed
-    in turns (each in order, then in reverse order) on one card: the launches'
-    device time, without the wrapper's host time between them."""
-    graphs = {name: graph_of(fn) for name, fn in fns.items()}
-    times = {name: [] for name in fns}
-    for name in [*graphs, *reversed(graphs)]:
-        times[name].append(time_ms(graphs[name].replay, iters=iters))
-    for name, ts in times.items():
-        print(f"    graph replay in turns: {name} {ts[0]}, {ts[1]} ms")
-    return {name: sum(ts) / len(ts) for name, ts in times.items()}
+    in turns: the launches' device time, without the wrapper's host time
+    between them."""
+    return in_turns({name: graph_of(fn).replay for name, fn in fns.items()}, "graph replay in turns", iters)
 
 
 DECODE_M = 4        # the Engine's slots: the M of every decode-step projection
@@ -1130,12 +1287,12 @@ def check_bnn_matmul_mxu(dev, cfg, gen) -> dict:
                             routed(mxu, path, lambda: mxu(xp, wp)), plain(xp, wp)))
     xs = ref.sign(x, torch.bfloat16)
     b_ms, b_by = bound_ms((m * k + k * n) * 2 + m * n * 4, 2 * m * n * k, BF16_TENSOR_FLOPS)
-    ms, lib_ms = time_in_turns(lambda: mxu(x, w), lambda: torch.matmul(xs, w))
+    t = in_turns({"kernel": lambda: mxu(x, w), "library": lambda: torch.matmul(xs, w)})
     return dict(source="src/repro_torch/csrc/bnn_matmul_mxu.cu",
                 replaces="src/repro/kernels/bnn_matmul_mxu.py:45",
-                max_abs_err=err, ms=ms,
+                max_abs_err=err, ms=t["kernel"],
                 plain_ms=time_ms(plain, x, w, iters=5),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=t["library"])
 
 
 def check_flash(dev, cfg, gen) -> dict:
@@ -1168,12 +1325,12 @@ def check_flash(dev, cfg, gen) -> dict:
     q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b_ms, b_by = bound_ms(4 * bh * s * d * 2, 2 * bh * s * s * d, BF16_TENSOR_FLOPS)  # causal half of 4*S^2*D
-    ms, lib_ms = time_in_turns(lambda: fa(q, k, v), lambda: sdpa(q4, k4, v4, is_causal=True))
+    t = in_turns({"kernel": lambda: fa(q, k, v), "library": lambda: sdpa(q4, k4, v4, is_causal=True)})
     return dict(source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:72",
-                max_abs_err=err, ms=ms,
+                max_abs_err=err, ms=t["kernel"],
                 plain_ms=time_ms(plain, q, k, v, iters=5),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=t["library"])
 
 
 def drive_binary_matmul(dev, cfg, gen) -> dict:
@@ -1279,6 +1436,12 @@ def drive_scoring(dev, cfg, params, gen) -> dict:
     return launches
 
 
+# The keys every entry of the kernels line has, in this order; a record's
+# other numbers follow them.
+CONTRACT_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run", file=sys.stderr)
@@ -1366,8 +1529,7 @@ def main() -> int:
              launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=r.get("library_ms"),
-             **{key: r[key] for key in ("old_route_ms", "back_to_back_ms", "ms_chunk_1024", "ms_128_tenants",
-                                        "ms_128_tenants_chunk_1024", "launches_by_path") if key in r})
+             **{key: value for key, value in r.items() if key not in CONTRACT_KEYS})
         for name, r in records.items()
     ]
     print(json.dumps({"kernels": kernels}))

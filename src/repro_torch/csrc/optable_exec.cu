@@ -33,24 +33,45 @@
 //   fit an SM.
 // - No row reads what an earlier row of the element wrote, so a thread takes
 //   rows in groups of kRowGroup: their records into registers, every value
-//   (all the shared-memory reads in flight together), then the writes.  The
+//   (all the register-file reads in flight together), then the writes.  The
 //   plan pads each run of one opcode to whole groups (lowering sorts an
 //   element's rows by opcode, so the headline model needs no padding), and a
 //   group branches once on its opcode, the same across the block.
-// - One thread per packet.  A block keeps its packets' register files and
-//   scratch in dynamic shared memory as [slot][thread] (consecutive threads,
-//   consecutive banks) and walks ALL elements in one launch, so the register
-//   file crosses device memory once per program.  Each element's records are
-//   staged in shared memory by cp.async, double-buffered: the next element's
-//   arrive while this one runs, and every thread reads a record by broadcast
-//   instead of eight global loads per row.  Threads past the batch run on
-//   zeros and store nothing (they take part in the barriers).  The wrapper
-//   picks the block size that keeps the most packets resident on an SM.
+// - One thread per packet, two routes (the wrapper's route() picks one from
+//   the plan before it launches):
+//   * shared (optable_kernel): a block keeps its packets' register files and
+//     scratch in dynamic shared memory as [slot][thread] (consecutive
+//     threads, consecutive banks) and walks ALL elements in one launch, so
+//     the register file crosses device memory once per program.  Each
+//     element's records are staged in shared memory by cp.async,
+//     double-buffered: the next element's arrive while this one runs, and
+//     every thread reads a record by broadcast instead of eight global loads
+//     per row.  Threads past the batch run on zeros and store nothing (they
+//     take part in the barriers).  The wrapper picks the block size that
+//     keeps the most packets resident on an SM.
+//   * global (optable_global_kernel), for a program whose register file and
+//     scratch do not fit one packet's share of a block's shared memory at 32
+//     packets a block (a merge of 32 or more tenants: 1,833 registers and
+//     more).  Each packet's registers and scratch live in device memory,
+//     slot-major as (num_regs + scratch, batch), so the 32 packets of a warp
+//     touch one 128-byte line a slot; the file stays in L2 while a chunk of
+//     1024 packets runs (11 MB at 32 tenants).  Only the records are staged
+//     in shared memory, double-buffered by cp.async as on the shared route,
+//     but in tiles of kTile records: an element of a 128-tenant merge holds
+//     7,989 records, more than two of them fit a block.  Headers and the
+//     write-back list are read through the read-only cache.  Threads past
+//     the batch take part in the barriers and never load or store.  Slots
+//     are indexed in 64 bits (slot * batch passes 2^31 on large files).
+//   Both routes run the same row groups and write-back (run_rows,
+//   write_back) over a base pointer and a slot stride: this thread's column
+//   of the shared block with stride blockDim.x, or of the global file with
+//   stride batch.
 //
 // uint32 semantics match XLA's: shifts by 32 or more give 0 (the clamped
 // funnel shifts), ADD wraps, GE_IMM compares unsigned, POPCNT is __popc.
 // The wrapper rejects opcodes outside 0-5 and slots outside the register
-// file while planning, before any launch.
+// file while planning, before any launch; the records' 16-bit slot fields
+// bound a file at 65,536 slots, registers and scratch together.
 
 #include "common.cuh"
 
@@ -58,6 +79,7 @@ namespace {
 
 enum : uint32_t { kXorImm = 0, kShrAndImm = 1, kAdd = 2, kGeImm = 3, kShlImm = 4, kPopcnt = 5 };
 constexpr int kRowGroup = 32;  // kernels/optable_exec.py ROW_GROUP
+constexpr int kTile = 1024;    // records of one element a global-route block stages at once
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -81,8 +103,8 @@ __device__ __forceinline__ uint32_t alu(uint32_t a, uint32_t b, uint32_t i0) {
 // registers first (a store into R could alias them, so reading them later
 // would wait on each store), then every row's value, then the writes in row
 // order.
-template <uint32_t OP>
-__device__ __forceinline__ void run_group(const uint4* __restrict__ q, uint32_t* R, int T) {
+template <uint32_t OP, typename Index>
+__device__ __forceinline__ void run_group(const uint4* __restrict__ q, uint32_t* R, Index T) {
   uint4 r[kRowGroup];
   uint32_t v[kRowGroup];
 #pragma unroll
@@ -100,6 +122,50 @@ __device__ __forceinline__ void run_group(const uint4* __restrict__ q, uint32_t*
     if (!((r[g].y >> 20) & 1u)) x += *d;  // a FOLD continuation adds (a load only then)
     *d = x;
   }
+}
+
+// `rows` records (a multiple of kRowGroup) of one element, group by group.
+template <typename Index>
+__device__ __forceinline__ void run_rows(const uint4* rec, int rows, uint32_t* R, Index T) {
+  for (int r0 = 0; r0 < rows; r0 += kRowGroup) {
+    const uint4* q = rec + r0;
+    switch ((q[0].y >> 16) & 0xFu) {  // one opcode per group, the same for the whole block
+      case kXorImm: run_group<kXorImm>(q, R, T); break;
+      case kShrAndImm: run_group<kShrAndImm>(q, R, T); break;
+      case kAdd: run_group<kAdd>(q, R, T); break;
+      case kGeImm: run_group<kGeImm>(q, R, T); break;
+      case kShlImm: run_group<kShlImm>(q, R, T); break;
+      default: run_group<kPopcnt>(q, R, T); break;
+    }
+  }
+}
+
+// An element's end: its deferred rows, in row order (their dst |
+// first_write << 16 list at `back`, their values in scratch slots
+// num_regs + k; kRowGroup entries and values are read before any of them is
+// written back), then the register its cut pads leave 0.
+template <typename Index>
+__device__ __forceinline__ void write_back(const uint32_t* back, int deferred, int zero_reg,
+                                           int num_regs, uint32_t* R, Index T) {
+  for (int k0 = 0; k0 < deferred; k0 += kRowGroup) {
+    uint32_t ent[kRowGroup], val[kRowGroup];
+#pragma unroll
+    for (int i = 0; i < kRowGroup; ++i) {
+      const bool ok = k0 + i < deferred;
+      ent[i] = ok ? back[k0 + i] : 0u;
+      val[i] = ok ? R[static_cast<Index>(num_regs + k0 + i) * T] : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kRowGroup; ++i) {
+      if (k0 + i < deferred) {
+        uint32_t* d = R + (ent[i] & 0xFFFFu) * T;
+        uint32_t x = val[i];
+        if (!(ent[i] >> 16)) x += *d;
+        *d = x;
+      }
+    }
+  }
+  if (zero_reg >= 0) R[static_cast<Index>(zero_reg) * T] = 0u;
 }
 
 __global__ void optable_kernel(const uint4* __restrict__ plan, const uint32_t* __restrict__ regs_in,
@@ -141,47 +207,67 @@ __global__ void optable_kernel(const uint4* __restrict__ plan, const uint32_t* _
     __syncthreads();
     stage(e + 1);
     const uint4* rec = smem4 + (e & 1) * stride;
-    const uint4 head = rec[0];
-    const int rows = static_cast<int>(head.x), deferred = static_cast<int>(head.y);
-    const int zero_reg = static_cast<int>(head.z);
-    for (int r0 = 1; r0 <= rows; r0 += kRowGroup) {
-      const uint4* q = rec + r0;
-      switch ((q[0].y >> 16) & 0xFu) {  // one opcode per group, the same for the whole block
-        case kXorImm: run_group<kXorImm>(q, R, T); break;
-        case kShrAndImm: run_group<kShrAndImm>(q, R, T); break;
-        case kAdd: run_group<kAdd>(q, R, T); break;
-        case kGeImm: run_group<kGeImm>(q, R, T); break;
-        case kShlImm: run_group<kShlImm>(q, R, T); break;
-        default: run_group<kPopcnt>(q, R, T); break;
-      }
-    }
-    // Deferred rows, in row order: their (dst | first_write << 16) list
-    // starts head.w words into the element's records, their values sit in
-    // scratch slots num_regs + k.  kRowGroup entries and values are read
-    // before any of them is written back.
-    const uint32_t* back = reinterpret_cast<const uint32_t*>(rec) + head.w;
-    for (int k0 = 0; k0 < deferred; k0 += kRowGroup) {
-      uint32_t ent[kRowGroup], val[kRowGroup];
-#pragma unroll
-      for (int i = 0; i < kRowGroup; ++i) {
-        const bool ok = k0 + i < deferred;
-        ent[i] = ok ? back[k0 + i] : 0u;
-        val[i] = ok ? R[(num_regs + k0 + i) * T] : 0u;
-      }
-#pragma unroll
-      for (int i = 0; i < kRowGroup; ++i) {
-        if (k0 + i < deferred) {
-          uint32_t* d = R + (ent[i] & 0xFFFFu) * T;
-          uint32_t x = val[i];
-          if (!(ent[i] >> 16)) x += *d;
-          *d = x;
-        }
-      }
-    }
-    if (zero_reg >= 0) R[zero_reg * T] = 0u;
+    const uint4 head = rec[0];  // records, deferred, zero_reg, write-back list's word offset
+    run_rows(rec + 1, static_cast<int>(head.x), R, T);
+    write_back(reinterpret_cast<const uint32_t*>(rec) + head.w, static_cast<int>(head.y),
+               static_cast<int>(head.z), num_regs, R, T);
   }
   if (live) {
     for (int r = 0; r < num_regs; ++r) regs_out[static_cast<size_t>(r) * batch + b] = R[r * T];
+  }
+}
+
+// The global route: this thread's packet is column b of `file`, a
+// (num_regs + scratch, batch) slot-major array in device memory that holds
+// the incoming registers in its first num_regs rows and the result after.
+// Each element's records are staged kTile at a time into one of two
+// shared-memory tiles (step s uses tile s % 2), the next step's records in
+// flight while this step's rows run.
+__global__ void optable_global_kernel(const uint4* __restrict__ plan, uint32_t* __restrict__ file,
+                                      int num_regs, int batch, int num_elements, int stride) {
+  extern __shared__ uint4 tiles[];
+  const int t = threadIdx.x;
+  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + t;
+  const bool live = b < batch;
+  const size_t T = static_cast<size_t>(batch);
+  uint32_t* R = file + (live ? b : 0);  // dereferenced only when live
+
+  auto steps = [](int rows) { return rows > 0 ? (rows + kTile - 1) / kTile : 1; };
+  // Records [k * kTile, (k + 1) * kTile) of element e's body into tile `buf`.
+  auto stage = [&](int e, int k, int buf) {
+    if (e < num_elements) {
+      const uint4* src = plan + static_cast<size_t>(e) * stride;
+      const int n = min(kTile, static_cast<int>(__ldg(&src->x)) - k * kTile);
+      src += 1 + static_cast<size_t>(k) * kTile;
+      uint4* dst = tiles + buf * kTile;
+      for (int i = t; i < n; i += blockDim.x) cp_async16(dst + i, src + i);
+    }
+    cp_async_commit();
+  };
+
+  stage(0, 0, 0);
+  int s = 0;
+  for (int e = 0; e < num_elements; ++e) {
+    const uint4* el = plan + static_cast<size_t>(e) * stride;
+    const uint4 head = __ldg(el);
+    const int rows = static_cast<int>(head.x);
+    const int n_steps = steps(rows);
+    for (int k = 0; k < n_steps; ++k, ++s) {
+      cp_async_wait_all();
+      // This step's records are in, and every thread is done with the
+      // previous step, whose tile the next step's records now overwrite.
+      __syncthreads();
+      if (k + 1 < n_steps) {
+        stage(e, k + 1, (s + 1) & 1);
+      } else {
+        stage(e + 1, 0, (s + 1) & 1);
+      }
+      if (live) run_rows(tiles + (s & 1) * kTile, min(kTile, rows - k * kTile), R, T);
+    }
+    if (live) {
+      write_back(reinterpret_cast<const uint32_t*>(el) + head.w, static_cast<int>(head.y),
+                 static_cast<int>(head.z), num_regs, R, T);
+    }
   }
 }
 
@@ -198,5 +284,18 @@ extern "C" int optable_run(const void* plan, const void* regs_in, void* regs_out
   optable_kernel<<<(batch + threads - 1) / threads, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(plan), static_cast<const uint32_t*>(regs_in),
       static_cast<uint32_t*>(regs_out), num_regs, batch, num_elements, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int optable_run_global(const void* plan, void* file, int num_regs, int batch,
+                                  int num_elements, int stride, int threads, void* stream) {
+  if (batch <= 0 || threads <= 0 || threads > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * static_cast<size_t>(kTile) * sizeof(uint4);
+  const int rc = allow_shared_bytes(optable_global_kernel, smem);
+  if (rc) return rc;
+  optable_global_kernel<<<(batch + threads - 1) / threads, threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(plan), static_cast<uint32_t*>(file), num_regs, batch, num_elements,
+      stride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,7 @@
 // are a few hundred bytes (the headline model writes 12.6 MB a chunk of
 // 32768 packets and reads under 0.4 MB).
 //
-// Design: two kernels, one entry point each; the wrapper
+// Design: three kernels, one entry point each; the wrapper
 // (kernels/packed_layer.py::route) picks one by what it can see.
 //
 // * quad (n_out a multiple of 4, at most 1024; NW = n_words of 1, 2 or 4,
@@ -31,26 +31,46 @@
 //   threads, neurons fastest, so the threads of one packet write neighbouring
 //   16-byte chunks and a block's stores cover one contiguous span.
 // * general (any other layer: a ragged n_out such as FIVE_TUPLE's 2-neuron
-//   output, more words, or a misaligned view).  One thread per (packet,
-//   neuron), neurons fastest; each block stages the layer's weights, masks
-//   and thresholds in shared memory once, then strides over the outputs.
+//   output, more words, or a misaligned view, whose tables fit one block's
+//   shared memory).  One thread per (packet, neuron), neurons fastest; each
+//   block stages the layer's weights, masks and thresholds in shared memory
+//   once, then strides over the outputs.
+// * cached (the general route's layers whose tables are past one block's
+//   shared memory: the block-diagonal layer of 32 merged tenants, 916
+//   neurons x 32 words).  The general kernel without the staging: the tables
+//   are read through the read-only cache.
 //
 // Both index with 32-bit integers (the wrapper keeps every index below 2^31).
 //
-// A third entry point, packed_layer_routed, is the per-tenant layer of the
-// multi-tenant scheduler's stacked dispatch.  It replaces no TPU kernel
-// either: the reference computes it in jnp
-// (src/repro/dataplane/executor.py:839-851, routed_packed_stacked_fn) with
-// jax.lax.population_count.  Each packet b carries a tenant id t_b, and its
-// neurons read that tenant's tables of a (T, N, W) stack:
+// packed_layer_routed is the per-tenant layer of the multi-tenant
+// scheduler's stacked dispatch.  It replaces no TPU kernel either: the
+// reference computes it in jnp (src/repro/dataplane/executor.py:839-851,
+// routed_packed_stacked_fn) with jax.lax.population_count.  Each packet b
+// carries a tenant id t_b, and its neurons read that tenant's tables of a
+// (T, N, W) stack:
 //   count = sum_w __popc(~(words[b, w] ^ weights[t_b, j, w]) & mask[t_b, j, w])
 //   out[b, j] = count >= thr[t_b, j]   (unsigned, {0,1} int32)
-// Design: one thread per (packet, neuron), neurons fastest, with a grid
-// stride.  The tables are read through the read-only cache and not staged
-// in shared memory: a 128-tenant stack need not fit one block's, and a
-// packet's neurons read one tenant's rows, so neighbouring threads read
-// neighbouring words.  An id outside [0, T) reads nothing and writes 0; the
-// wrapper refuses such ids before it launches.
+// An id outside [0, T) reads nothing and writes 0 (the public wrapper
+// refuses such ids before it launches).  What bounds it is the same as the
+// packed layer's: the output stores (13 MB a chunk of 32768 packets for the
+// benchmark pool's (T, 64, 1) and (T, 32, 2) layers).  The tables are read
+// through the read-only cache and not staged in shared memory: a 128-tenant
+// stack (about 130 KB) stays in L1 and L2, and a packet's neurons read one
+// tenant's rows.  Two kernels, one entry point each; the wrapper
+// (kernels/packed_layer.py::routed_route) picks one by what it can see:
+//
+// * quad (n_out a multiple of 4, at most 1024; NW of 1, 2 or 4; words aligned
+//   to NW words, the tables to 16 bytes).  One thread owns (packet, 4
+//   consecutive neurons), neurons fastest, so a packet's threads write
+//   neighbouring 16-byte chunks.  It reads the packet's id (one address for
+//   all of the packet's threads) and its NW words in one load.  The tables
+//   are neuron-major, so the 4 neurons' weight words are one contiguous
+//   16*NW-byte span of the tenant's block, read as NW int4 loads; so are
+//   their mask words, and the 4 thresholds are one int4.  One int4 store a
+//   thread, with a block stride over the packets.
+// * general (any other layer: a ragged n_out, other word counts, misaligned
+//   views).  One thread per (packet, neuron), neurons fastest, with a grid
+//   stride; scalar 4-byte loads and store.
 
 #include "common.cuh"
 
@@ -107,21 +127,32 @@ packed_layer_quad_kernel(const uint32_t* __restrict__ words, const uint32_t* __r
   }
 }
 
+// kStaged: the tables are copied into shared memory first (route general);
+// else they are read through the read-only cache (route cached).
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 packed_layer_general_kernel(const uint32_t* __restrict__ words, const uint32_t* __restrict__ weights,
                             const uint32_t* __restrict__ mask, const uint32_t* __restrict__ thr,
                             int* __restrict__ out, uint32_t batch, uint32_t n_out, uint32_t n_words) {
   extern __shared__ uint32_t smem[];
-  const uint32_t table = n_out * n_words;
-  uint32_t* sw = smem;
-  uint32_t* sm = smem + table;
-  uint32_t* st = smem + 2 * table;
-  for (uint32_t i = threadIdx.x; i < table; i += blockDim.x) {
-    sw[i] = weights[i];
-    sm[i] = mask[i];
+  const uint32_t* sw = weights;
+  const uint32_t* sm = mask;
+  const uint32_t* st = thr;
+  if constexpr (kStaged) {
+    const uint32_t table = n_out * n_words;
+    uint32_t* w = smem;
+    uint32_t* mk = smem + table;
+    uint32_t* th = smem + 2 * table;
+    for (uint32_t i = threadIdx.x; i < table; i += blockDim.x) {
+      w[i] = weights[i];
+      mk[i] = mask[i];
+    }
+    for (uint32_t i = threadIdx.x; i < n_out; i += blockDim.x) th[i] = thr[i];
+    sw = w;
+    sm = mk;
+    st = th;
+    __syncthreads();
   }
-  for (uint32_t i = threadIdx.x; i < n_out; i += blockDim.x) st[i] = thr[i];
-  __syncthreads();
 
   const uint32_t total = batch * n_out;
   for (uint32_t idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
@@ -140,7 +171,7 @@ packed_layer_general_kernel(const uint32_t* __restrict__ words, const uint32_t* 
 }
 
 __global__ void __launch_bounds__(kThreads)
-packed_layer_routed_kernel(const uint32_t* __restrict__ words, const int* __restrict__ ids,
+packed_layer_routed_general_kernel(const uint32_t* __restrict__ words, const int* __restrict__ ids,
                            const uint32_t* __restrict__ weights, const uint32_t* __restrict__ mask,
                            const uint32_t* __restrict__ thr, int* __restrict__ out, uint32_t batch,
                            uint32_t n_out, uint32_t n_words, uint32_t n_tenants) {
@@ -166,17 +197,92 @@ packed_layer_routed_kernel(const uint32_t* __restrict__ words, const int* __rest
   }
 }
 
+// 4 * NW consecutive table words (4 neurons' rows) from a 16-byte aligned p.
+template <int NW>
+__device__ __forceinline__ void load_rows(uint32_t (&v)[4 * NW], const uint32_t* p) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    v[4 * i] = u.x; v[4 * i + 1] = u.y; v[4 * i + 2] = u.z; v[4 * i + 3] = u.w;
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ int fires_row(const uint32_t (&x)[NW], const uint32_t* w,
+                                         const uint32_t* mk, uint32_t thr) {
+  uint32_t count = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) count += static_cast<uint32_t>(__popc(~(x[k] ^ w[k]) & mk[k]));
+  return count >= thr ? 1 : 0;
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+packed_layer_routed_quad_kernel(const uint32_t* __restrict__ words, const int* __restrict__ ids,
+                                const uint32_t* __restrict__ weights, const uint32_t* __restrict__ mask,
+                                const uint32_t* __restrict__ thr, int4* __restrict__ out, uint32_t batch,
+                                uint32_t quads, uint32_t n_tenants) {
+  const uint32_t per_block = blockDim.x / quads;  // packets a block step covers
+  const uint32_t q = threadIdx.x % quads, p = threadIdx.x / quads;
+  for (uint32_t b = blockIdx.x * per_block + p; b < batch; b += gridDim.x * per_block) {
+    const uint32_t t = static_cast<uint32_t>(__ldg(ids + b));  // a negative id wraps past n_tenants
+    int4 o = make_int4(0, 0, 0, 0);
+    if (t < n_tenants) {
+      const uint32_t row = (t * quads + q) * 4;  // the first of the 4 neurons in the (T * N) rows
+      uint32_t x[NW], w[4 * NW], mk[4 * NW];
+      load_words<NW>(x, words + b * NW);
+      load_rows<NW>(w, weights + row * NW);
+      load_rows<NW>(mk, mask + row * NW);
+      const uint4 th = __ldg(reinterpret_cast<const uint4*>(thr + row));
+      o = make_int4(fires_row<NW>(x, w, mk, th.x), fires_row<NW>(x, w + NW, mk + NW, th.y),
+                    fires_row<NW>(x, w + 2 * NW, mk + 2 * NW, th.z),
+                    fires_row<NW>(x, w + 3 * NW, mk + 3 * NW, th.w));
+    }
+    out[b * quads + q] = o;
+  }
+}
+
+// Blocks of a quad-route launch: a whole number of packets' quads a block,
+// enough blocks to cover the batch, at most kMaxBlocks (they stride).
+inline uint32_t quad_blocks(uint32_t batch, uint32_t quads) {
+  const uint32_t per_block = kThreads / quads;
+  const uint32_t wanted = (batch + per_block - 1) / per_block;
+  return wanted < kMaxBlocks ? wanted : kMaxBlocks;
+}
+
+template <int NW>
+int launch_routed_quad(const void* words, const void* ids, const void* weights, const void* mask,
+                       const void* thr, void* out, uint32_t batch, uint32_t n_out, uint32_t n_tenants,
+                       cudaStream_t stream) {
+  const uint32_t quads = n_out / 4;
+  packed_layer_routed_quad_kernel<NW><<<quad_blocks(batch, quads), (kThreads / quads) * quads, 0, stream>>>(
+      static_cast<const uint32_t*>(words), static_cast<const int*>(ids),
+      static_cast<const uint32_t*>(weights), static_cast<const uint32_t*>(mask),
+      static_cast<const uint32_t*>(thr), static_cast<int4*>(out), batch, quads, n_tenants);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int NW>
 int launch_quad(const void* words, const void* weights, const void* mask, const void* thr,
                 void* out, uint32_t batch, uint32_t n_out, cudaStream_t stream) {
   const uint32_t quads = n_out / 4;
-  const uint32_t per_block = kThreads / quads;
-  const uint32_t wanted = (batch + per_block - 1) / per_block;
-  const uint32_t blocks = wanted < kMaxBlocks ? wanted : kMaxBlocks;
-  packed_layer_quad_kernel<NW><<<blocks, per_block * quads, 0, stream>>>(
+  packed_layer_quad_kernel<NW><<<quad_blocks(batch, quads), (kThreads / quads) * quads, 0, stream>>>(
       static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(weights),
       static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(thr),
       static_cast<int4*>(out), batch, quads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStaged>
+int launch_general(const void* words, const void* weights, const void* mask, const void* thr,
+                   void* out, int batch, int n_out, int n_words, size_t smem, cudaStream_t stream) {
+  const uint32_t total = static_cast<uint32_t>(batch) * static_cast<uint32_t>(n_out);
+  const uint32_t wanted = (total + kThreads - 1) / kThreads;
+  const uint32_t blocks = wanted < kMaxBlocks * 2 ? wanted : kMaxBlocks * 2;
+  packed_layer_general_kernel<kStaged><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(weights),
+      static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(thr),
+      static_cast<int*>(out), batch, n_out, n_words);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -201,21 +307,22 @@ extern "C" int packed_layer_general(const void* words, const void* weights, cons
   const size_t smem =
       (2 * static_cast<size_t>(n_out) * n_words + n_out) * sizeof(uint32_t);
   if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = allow_shared_bytes(packed_layer_general_kernel, smem);
+  const int rc = allow_shared_bytes(&packed_layer_general_kernel<true>, smem);
   if (rc) return rc;
-  const uint32_t total = static_cast<uint32_t>(batch) * static_cast<uint32_t>(n_out);
-  const uint32_t wanted = (total + kThreads - 1) / kThreads;
-  const uint32_t blocks = wanted < kMaxBlocks * 2 ? wanted : kMaxBlocks * 2;
-  packed_layer_general_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(weights),
-      static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(thr),
-      static_cast<int*>(out), batch, n_out, n_words);
-  return static_cast<int>(cudaGetLastError());
+  return launch_general<true>(words, weights, mask, thr, out, batch, n_out, n_words, smem,
+                              static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int packed_layer_routed(const void* words, const void* ids, const void* weights,
-                                   const void* mask, const void* thr, void* out, int batch,
-                                   int n_out, int n_words, int n_tenants, void* stream) {
+extern "C" int packed_layer_cached(const void* words, const void* weights, const void* mask,
+                                   const void* thr, void* out, int batch, int n_out, int n_words,
+                                   void* stream) {
+  return launch_general<false>(words, weights, mask, thr, out, batch, n_out, n_words, 0,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int packed_layer_routed_general(const void* words, const void* ids, const void* weights,
+                                           const void* mask, const void* thr, void* out, int batch,
+                                           int n_out, int n_words, int n_tenants, void* stream) {
   if (batch < 0 || n_out <= 0 || n_words <= 0 || n_tenants <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -223,9 +330,25 @@ extern "C" int packed_layer_routed(const void* words, const void* ids, const voi
   if (total == 0) return 0;
   const uint32_t wanted = (total + kThreads - 1) / kThreads;
   const uint32_t blocks = wanted < kMaxBlocks * 2 ? wanted : kMaxBlocks * 2;
-  packed_layer_routed_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  packed_layer_routed_general_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const int*>(ids),
       static_cast<const uint32_t*>(weights), static_cast<const uint32_t*>(mask),
       static_cast<const uint32_t*>(thr), static_cast<int*>(out), batch, n_out, n_words, n_tenants);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int packed_layer_routed_quad(const void* words, const void* ids, const void* weights,
+                                        const void* mask, const void* thr, void* out, int batch,
+                                        int n_out, int n_words, int n_tenants, void* stream) {
+  if (batch < 0 || n_out <= 0 || n_out % 4 || n_out > 4 * kThreads || n_tenants <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (n_words) {
+    case 1: return launch_routed_quad<1>(words, ids, weights, mask, thr, out, batch, n_out, n_tenants, s);
+    case 2: return launch_routed_quad<2>(words, ids, weights, mask, thr, out, batch, n_out, n_tenants, s);
+    case 4: return launch_routed_quad<4>(words, ids, weights, mask, thr, out, batch, n_out, n_tenants, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -62,9 +62,9 @@ from repro_torch.dataplane.lowering import LoweredProgram
 from repro_torch.dataplane.plan import Backend
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bitpack import pack_bits_words
-from repro_torch.kernels.optable_exec import optable_run, optable_run_segmented, plan_threads
+from repro_torch.kernels.optable_exec import optable_run, optable_run_segmented
 from repro_torch.kernels.optable_exec import prepare as prepare_optable
-from repro_torch.kernels.packed_layer import packed_layer, packed_layer_routed
+from repro_torch.kernels.packed_layer import _check_routed_args, _routed, packed_layer
 
 DEFAULT_CHUNK = 1 << 15  # 32768 packets per device dispatch
 
@@ -534,10 +534,7 @@ def routed_fn(
     (:func:`_invert_parse_routing`), the program runs as one
     ``optable_run`` launch (``optable_run_segmented`` over the merged
     plan), and the register file never leaves the device between phases.
-    Cached per (program fingerprint, device, routing content).  On a CUDA
-    device the merged register file must fit the op-table kernel's shared
-    memory: a ``ValueError`` naming the limit and the register count is
-    raised here, before any chunk runs.
+    Cached per (program fingerprint, device, routing content).
     """
     if resolve_backend(backend) == "packed":
         raise ValueError(
@@ -553,9 +550,6 @@ def routed_fn(
     if fn is not None:
         return fn
     t = _device_tables(lp, device)
-    if device.type == "cuda":
-        plan, _ = prepare_optable((*t.ops, t.first_write), lp.num_regs)
-        plan_threads(plan, lp.num_regs)
     reg_slots, parse_col, parse_ok = _invert_parse_routing(in_slot, in_shift, in_valid)
     n_slots = len(reg_slots)
     d_reg_slots = _index(reg_slots, device)
@@ -679,6 +673,12 @@ def routed_packed_stacked_fn(lowereds: tuple, *, device="cuda") -> Callable | No
     non-trivial word layout (hand-assembled programs) — callers fall back
     to the block-diagonal merged plan.  Cached per tenant fingerprints and
     device.
+
+    The function's ``program_ids`` must lie in ``[0, len(lowereds))``: the
+    caller checks them on the host before it uploads them, as
+    ``SwitchScheduler`` does for every chunk, so a dispatch on the card
+    reads nothing back from the device (``packed_layer._routed``; an id
+    outside the range gives 0 bits there, and raises on the CPU).
     """
     device = resolve_device(device)
     key = (tuple(lp.fingerprint() for lp in lowereds), str(device))
@@ -700,7 +700,9 @@ def routed_packed_stacked_fn(lowereds: tuple, *, device="cuda") -> Callable | No
                 h = torch.nn.functional.pad(h, (0, need - h.shape[1]))
             else:
                 h = h[:, :need]
-            h = packed_layer_routed(pack_bits_words(h), ids, w_tbl, m_tbl, thr_tbl)
+            words = pack_bits_words(h)
+            _check_routed_args(words, ids, w_tbl, m_tbl, thr_tbl)
+            h = _routed(words, ids, w_tbl, m_tbl, thr_tbl)
         return h
 
     _ROUTED_STACK_CACHE[key] = fn

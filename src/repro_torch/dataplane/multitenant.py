@@ -968,6 +968,8 @@ class SwitchScheduler:
             tenants=len(self.tenants), backend=backend, layout=layout,
         ):
             for tids, bits in _rechunk_mixed(stream, chunk):
+                # The ids are checked here, on the host, once a chunk: the
+                # dispatch then reads nothing back before its copy out.
                 self._check_chunk(tids, bits, width)
                 n = bits.shape[0]
                 bits_dev = _executor._to_device(bits, device)

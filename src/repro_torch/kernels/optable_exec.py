@@ -14,6 +14,18 @@ them once on the host (:func:`prepare`, cached by table tensor): pad rows
 cut, each row packed into one record, and the rows whose results must wait
 for the element's end marked.  Planning checks the tables, so a launch on
 tables already planned reads nothing back from the device.
+
+The kernel has two routes, chosen before the launch by :func:`route`, a
+pure function of the plan and the register count:
+
+* ``"shared"``: a packet's registers and scratch rows live in shared memory
+  (a block of :func:`plan_threads` packets);
+* ``"global"``: they do not fit one packet's share of a block at 32 packets
+  (a merge of 32 or more tenants), so they live in device memory, in a
+  ``(num_regs + max_deferred, batch)`` file the wrapper allocates.
+
+Each launch is counted in ``optable_run.launches`` and, by route, in
+``optable_run.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -31,18 +43,19 @@ from repro_torch.kernels import _build
 
 BLOCK_THREADS = (256, 128, 64, 32)
 ROW_GROUP = 32  # rows of one opcode a thread computes before it writes any (csrc kRowGroup)
+ROUTES = ("shared", "global")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"optable_run": ([_P, _P, _P] + [_I] * 6 + [_P], ctypes.c_int)}
+_SIGNATURES = {
+    "optable_run": ([_P, _P, _P] + [_I] * 6 + [_P], ctypes.c_int),
+    "optable_run_global": ([_P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+}
 _SLOT_LIMIT = 1 << 16  # a record's slot fields are 16 bits wide
 
 
-def block_threads(num_regs: int, scratch_rows: int, fixed_bytes: int = 0) -> int:
-    """Packets per block: of ``BLOCK_THREADS``, the one that keeps the most
-    packets resident on an SM (the larger block on a tie), where a block
-    holds ``(num_regs + scratch_rows) * 4`` bytes of shared memory a packet
-    beside ``fixed_bytes`` of its own."""
+def _fit_threads(num_regs: int, scratch_rows: int, fixed_bytes: int) -> int | None:
+    """:func:`block_threads`, or None where no block size fits."""
     best, most = None, 0
     for threads in BLOCK_THREADS:
         smem = (num_regs + scratch_rows) * 4 * threads + fixed_bytes
@@ -52,22 +65,54 @@ def block_threads(num_regs: int, scratch_rows: int, fixed_bytes: int = 0) -> int
                      _build.SM_MAX_THREADS // threads, _build.SM_MAX_BLOCKS)
         if blocks * threads > most:
             best, most = threads, blocks * threads
+    return best
+
+
+def block_threads(num_regs: int, scratch_rows: int, fixed_bytes: int = 0) -> int:
+    """Packets per block of the shared route: of ``BLOCK_THREADS``, the one
+    that keeps the most packets resident on an SM (the larger block on a
+    tie), where a block holds ``(num_regs + scratch_rows) * 4`` bytes of
+    shared memory a packet beside ``fixed_bytes`` of its own.  Raises
+    ``ValueError`` when one packet's share does not fit a block of the
+    smallest size."""
+    best = _fit_threads(num_regs, scratch_rows, fixed_bytes)
     if best is None:
         least = (num_regs + scratch_rows) * 4 * BLOCK_THREADS[-1] + fixed_bytes
         raise ValueError(
             f"{num_regs} registers + {scratch_rows} scratch rows need {least} B of shared memory "
             f"at {BLOCK_THREADS[-1]} packets per block, beyond the {_build.MAX_SHARED_BYTES} B "
-            "limit of one block: the op-table kernel keeps each packet's register file in "
+            "limit of one block: the shared route keeps each packet's register file in "
             "shared memory"
         )
     return best
 
 
 def plan_threads(plan: "Plan", num_regs: int) -> int:
-    """Packets per block of a launch on ``plan`` over ``num_regs`` registers
-    (the block also stages two elements' records); raises ``ValueError`` when
-    one packet's registers and scratch do not fit a block of the smallest size."""
+    """Packets per block of a shared-route launch on ``plan`` over
+    ``num_regs`` registers (the block also stages two elements' records);
+    raises ``ValueError`` when one packet's registers and scratch do not fit
+    a block of the smallest size."""
     return block_threads(num_regs, plan.max_deferred, 2 * plan.stride * 16)
+
+
+def route(plan: "Plan", num_regs: int) -> str:
+    """The kernel a CUDA launch on ``plan`` over ``num_regs`` registers
+    takes: ``"shared"`` where :func:`plan_threads` finds a block size, else
+    ``"global"``.  Pure: it reads the plan's sizes only."""
+    fits = _fit_threads(num_regs, plan.max_deferred, 2 * plan.stride * 16) is not None
+    return "shared" if fits else "global"
+
+
+def global_threads(batch: int, sms: int) -> int:
+    """Packets per block of a global-route launch: of ``BLOCK_THREADS``, the
+    largest that still gives each of the card's ``sms`` SMs a block (the
+    smallest where the batch is too small for that).  A packet is latency
+    bound on its walk through the rows, so spreading a small batch over more
+    SMs helps it and a large batch loses nothing."""
+    for threads in BLOCK_THREADS:
+        if -(-batch // threads) >= sms:
+            return threads
+    return BLOCK_THREADS[-1]
 
 
 def _check_args(regs, tables) -> None:
@@ -276,28 +321,50 @@ def optable_run(
     if regs.device.type != "cuda":
         raise ValueError(f"optable_run runs on CPU or CUDA tensors, got {regs.device}")
     _build.refuse_grad("optable_run", regs, *tables)
-    num_regs, batch = regs.shape
+    num_regs = regs.shape[0]
     plan, records = prepare(tables, num_regs)
-    regs = regs.contiguous()
-    out = torch.empty_like(regs)
-    num_el = opcode.shape[0]
+    return _launch(regs.contiguous(), plan, records, route(plan, num_regs))
+
+
+def _launch(regs: torch.Tensor, plan: Plan, records: torch.Tensor, path: str) -> torch.Tensor:
+    """Launch route ``path``'s kernel on a checked, contiguous CUDA register
+    file and a plan of its tables (:func:`prepare`); returns the new file.
+    A ``"shared"`` launch whose file does not fit raises ``ValueError``
+    (:func:`plan_threads`).  An empty batch or program launches nothing."""
+    if path not in ROUTES:
+        raise ValueError(f"optable_run has routes {ROUTES}, not {path!r}")
+    num_regs, batch = regs.shape
+    num_el = plan.records.shape[0]
+    threads = plan_threads(plan, num_regs) if path == "shared" else global_threads(
+        batch, torch.cuda.get_device_properties(regs.device).multi_processor_count)
     if batch == 0 or num_el == 0:
-        out.copy_(regs)
-        return out
-    threads = plan_threads(plan, num_regs)
+        return regs.clone()
     lib = _build.library("optable_exec", _SIGNATURES)
+    stream = _build.stream_of(regs)
     with torch.cuda.device(regs.device):
-        code = lib.optable_run(
-            records.data_ptr(), regs.data_ptr(), out.data_ptr(),
-            num_regs, batch, num_el, plan.stride, plan.max_deferred, threads,
-            _build.stream_of(regs),
-        )
+        if path == "shared":
+            out = torch.empty_like(regs)
+            code = lib.optable_run(
+                records.data_ptr(), regs.data_ptr(), out.data_ptr(),
+                num_regs, batch, num_el, plan.stride, plan.max_deferred, threads, stream,
+            )
+        else:
+            # Registers, then the scratch rows, slot-major in device memory:
+            # the kernel runs in place and the first num_regs rows are the result.
+            file = torch.empty((num_regs + plan.max_deferred, batch), dtype=torch.int32, device=regs.device)
+            file[:num_regs].copy_(regs)
+            out = file[:num_regs]
+            code = lib.optable_run_global(
+                records.data_ptr(), file.data_ptr(), num_regs, batch, num_el, plan.stride, threads, stream,
+            )
     _build.check(lib, code, "optable_run")
     optable_run.launches += 1
+    optable_run.launches_by_route[path] += 1
     return out
 
 
 optable_run.launches = 0
+optable_run.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def optable_run_segmented(

@@ -12,13 +12,17 @@ PyTorch has no popcount op, so the port has a kernel (source:
 All operands are int32 bit views of uint32.  Pad neurons carry the threshold
 ``0xFFFFFFFF`` (``-1`` as a bit view) and must never fire, so the compare is
 unsigned on both paths.  A CPU tensor runs :func:`packed_layer_plain`; a
-CUDA tensor launches one of two kernels, chosen by :func:`route`:
+CUDA tensor launches one of three kernels, chosen by :func:`route`:
 
 * ``"quad"``: ``n_out`` a multiple of 4 (at most ``QUAD_MAX_OUT``) and
   ``n_words`` in ``QUAD_WORDS``, the words aligned to a packet's row: a
   thread holds 4 neurons' tables in registers and writes 16 bytes a packet;
 * ``"general"``: every other layer (FIVE_TUPLE's 2-neuron output layer, wider
-  layers, misaligned views), one thread per output, tables in shared memory.
+  layers, misaligned views) whose tables fit one block's shared memory, one
+  thread per output, tables staged in shared memory;
+* ``"cached"``: the same kernel for tables past one block's shared memory
+  (the block-diagonal layer of 32 merged tenants), read through the
+  read-only cache.
 
 Each launch is counted in ``packed_layer.launches`` and, by route, in
 ``packed_layer.launches_by_route``.
@@ -26,8 +30,14 @@ Each launch is counted in ``packed_layer.launches`` and, by route, in
 :func:`packed_layer_routed` is the multi-tenant scheduler's per-tenant
 layer (the reference's jnp in ``routed_packed_stacked_fn``): each packet
 carries a tenant id and reads that tenant's block of ``(T, n_out, n_words)``
-stacked tables.  It has one kernel (``packed_layer_routed`` in the same
-source) and counts its launches in ``packed_layer_routed.launches``.
+stacked tables.  It has two kernels in the same source, chosen by
+:func:`routed_route`: ``"quad"`` (the shapes of ``route``'s quad, and
+16-byte aligned tables: 4 neurons a thread, their table rows in vector
+loads) and ``"general"`` (one thread per output).  Its launches are counted
+in ``packed_layer_routed.launches`` and ``launches_by_route``.  The public
+wrapper checks the ids' range, which reads it back from the device; the
+scheduler's dispatch (``executor.routed_packed_stacked_fn``), whose ids are
+checked on the host, calls the private ``_routed`` and reads nothing back.
 """
 from __future__ import annotations
 
@@ -41,10 +51,12 @@ from repro_torch.kernels import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-ROUTES = ("quad", "general")
+ROUTES = ("quad", "general", "cached")
+ROUTED_ROUTES = ("quad", "general")
 _ENTRY = {path: f"packed_layer_{path}" for path in ROUTES}
+_ROUTED_ENTRY = {path: f"packed_layer_routed_{path}" for path in ROUTED_ROUTES}
 _SIGNATURES = {name: ([_P] * 5 + [_I, _I, _I, _P], _I) for name in _ENTRY.values()}
-_SIGNATURES["packed_layer_routed"] = ([_P] * 6 + [_I] * 4 + [_P], _I)
+_SIGNATURES.update({name: ([_P] * 6 + [_I] * 4 + [_P], _I) for name in _ROUTED_ENTRY.values()})
 
 # The quad route's limits (csrc/packed_layer.cu): a thread's 4 neurons' words
 # live in registers for these word counts, and a block of 256 threads holds
@@ -57,11 +69,30 @@ _MAX_INDEX = 1 << 31
 
 def route(words: torch.Tensor, weights: torch.Tensor) -> str:
     """The kernel a CUDA launch on these (contiguous) operands takes:
-    ``"quad"`` or ``"general"``.  Pure: it reads shapes and ``data_ptr``
-    only, so it can be asked on any device."""
+    ``"quad"``, else ``"general"`` where the weights, masks and thresholds
+    fit one block's shared memory, else ``"cached"``.  Pure: it reads shapes
+    and ``data_ptr`` only, so it can be asked on any device."""
     n_out, n_words = weights.shape
     if (n_out % 4 == 0 and 0 < n_out <= QUAD_MAX_OUT and n_words in QUAD_WORDS
             and words.data_ptr() % (4 * n_words) == 0):
+        return "quad"
+    if (2 * n_out * n_words + n_out) * 4 <= _build.MAX_SHARED_BYTES:
+        return "general"
+    return "cached"
+
+
+def routed_route(words: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor,
+                 thresholds: torch.Tensor) -> str:
+    """The kernel a CUDA launch of :func:`packed_layer_routed` on these
+    (contiguous) operands takes: ``"quad"`` where ``weights`` is (T, n_out,
+    n_words) with n_out % 4 == 0 up to ``QUAD_MAX_OUT``, n_words in
+    ``QUAD_WORDS``, a packet's words aligned to its row and the tables to 16
+    bytes (4 neurons' rows are read as 16-byte vectors), else
+    ``"general"``.  Pure: it reads shapes and ``data_ptr`` only."""
+    _, n_out, n_words = weights.shape
+    if (n_out % 4 == 0 and 0 < n_out <= QUAD_MAX_OUT and n_words in QUAD_WORDS
+            and words.data_ptr() % (4 * n_words) == 0
+            and all(t.data_ptr() % 16 == 0 for t in (weights, mask, thresholds))):
         return "quad"
     return "general"
 
@@ -106,10 +137,7 @@ def packed_layer(
         return out
     if batch * max(n_out, n_words) >= _MAX_INDEX:
         raise ValueError(f"a batch of {batch} is beyond the kernels' 32-bit indices")
-    path = route(words, weights)
-    if path == "general" and (2 * n_out * n_words + n_out) * 4 > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"a {n_out}x{n_words}-word layer does not fit shared memory")
-    return _launch(words, weights, mask, thresholds, out, path)
+    return _launch(words, weights, mask, thresholds, out, route(words, weights))
 
 
 def _launch(words, weights, mask, thresholds, out, path: str) -> torch.Tensor:
@@ -165,6 +193,10 @@ def _check_routed_args(words, tenant_ids, weights, mask, thresholds) -> None:
             raise ValueError(f"operand on {t.device}, words on {words.device}")
     if n_tenants == 0 or n_out == 0 or n_words == 0:
         raise ValueError(f"empty tables {tuple(weights.shape)}")
+
+
+def _check_ids(tenant_ids, n_tenants: int) -> None:
+    """Raise on an id outside [0, n_tenants) (a host sync on a CUDA tensor)."""
     if tenant_ids.numel():
         lo, hi = (int(v) for v in torch.aminmax(tenant_ids))
         if lo < 0 or hi >= n_tenants:
@@ -181,10 +213,22 @@ def packed_layer_routed(
     """One packed layer whose tables each packet takes from its tenant's
     block: (batch, n_words) words and (batch,) int32 tenant ids against
     (T, n_out, n_words) weights and masks and (T, n_out) thresholds ->
-    (batch, n_out) {0,1} int32.  Raises on a tenant id outside [0, T)
-    (reading the ids back from the device to check them)."""
+    (batch, n_out) {0,1} int32.  Raises on a tenant id outside [0, T),
+    before any launch (reading the ids' range back from the device)."""
     _check_routed_args(words, tenant_ids, weights, mask, thresholds)
+    if words.device.type == "cuda":
+        _check_ids(tenant_ids, weights.shape[0])
+    return _routed(words, tenant_ids, weights, mask, thresholds)
+
+
+def _routed(words, tenant_ids, weights, mask, thresholds) -> torch.Tensor:
+    """The per-tenant layer on operands that passed
+    :func:`_check_routed_args`: on the CPU the ids are checked and the plain
+    version runs; on the card nothing is read back (the caller checked the
+    ids, and an id outside [0, T) gives 0 bits) and :func:`routed_route`'s
+    kernel is launched."""
     if words.device.type == "cpu":
+        _check_ids(tenant_ids, weights.shape[0])
         return packed_layer_routed_plain(words, tenant_ids, weights, mask, thresholds)
     if words.device.type != "cuda":
         raise ValueError(f"packed_layer_routed runs on CPU or CUDA tensors, got {words.device}")
@@ -192,33 +236,37 @@ def packed_layer_routed(
     words, tenant_ids, weights, mask, thresholds = (
         t.contiguous() for t in (words, tenant_ids, weights, mask, thresholds)
     )
-    n_tenants, n_out, n_words = weights.shape
+    _, n_out, n_words = weights.shape
     batch = words.shape[0]
     if max(batch * max(n_out, n_words), weights.numel()) >= _MAX_INDEX:
         raise ValueError(f"a batch of {batch} or a {tuple(weights.shape)} stack is beyond "
-                         "the kernel's 32-bit indices")
+                         "the kernels' 32-bit indices")
     out = torch.empty((batch, n_out), dtype=torch.int32, device=words.device)
     if batch == 0:
         return out
-    return _launch_routed(words, tenant_ids, weights, mask, thresholds, out)
+    path = routed_route(words, weights, mask, thresholds)
+    return _launch_routed(words, tenant_ids, weights, mask, thresholds, out, path)
 
 
-def _launch_routed(words, tenant_ids, weights, mask, thresholds, out) -> torch.Tensor:
-    """Launch the per-tenant kernel on checked, contiguous operands."""
+def _launch_routed(words, tenant_ids, weights, mask, thresholds, out, path: str) -> torch.Tensor:
+    """Launch route ``path``'s per-tenant kernel on checked, contiguous
+    operands."""
     n_tenants, n_out, n_words = weights.shape
     lib = _build.library("packed_layer", _SIGNATURES)
     with torch.cuda.device(words.device):
-        code = lib.packed_layer_routed(
+        code = getattr(lib, _ROUTED_ENTRY[path])(
             words.data_ptr(), tenant_ids.data_ptr(), weights.data_ptr(), mask.data_ptr(),
             thresholds.data_ptr(), out.data_ptr(), words.shape[0], n_out, n_words, n_tenants,
             _build.stream_of(words),
         )
     _build.check(lib, code, "packed_layer_routed")
     packed_layer_routed.launches += 1
+    packed_layer_routed.launches_by_route[path] += 1
     return out
 
 
 packed_layer_routed.launches = 0
+packed_layer_routed.launches_by_route = dict.fromkeys(ROUTED_ROUTES, 0)
 
 
 def packed_layer_routed_plain(

@@ -295,6 +295,40 @@ def test_packed_layer_routes_match_plain(cuda, n_out, n_words, batch):
         assert torch.equal(_launched(fn, shifted, lambda: fn(words, *dev[1:])).cpu(), want)
 
 
+# Tables past one block's shared memory ((2 * n_out * n_words + n_out) * 4
+# bytes over 232,448) take the cached route, which reads them through the
+# read-only cache; the general route, forced, refuses them.  916 x 32 words
+# is the block-diagonal layer of 32 merged tenants.
+@pytest.mark.parametrize("n_out,n_words", [(916, 32), (1030, 29), (600, 48)])
+@pytest.mark.parametrize("batch", [1, 1001])
+def test_packed_layer_cached_route_past_shared_memory(cuda, n_out, n_words, batch):
+    assert (2 * n_out * n_words + n_out) * 4 > 232448
+    rng = np.random.default_rng(n_out + n_words + batch)
+    args = _layer_operands(rng, batch, n_out, n_words, 3)
+    fn = packed_layer.packed_layer
+    dev = [a.to(cuda) for a in args]
+    got = _launched(fn, "cached", lambda: fn(*dev))
+    assert torch.equal(got.cpu(), packed_layer.packed_layer_plain(*args))
+    assert not got[:, n_out - 3:].any()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        packed_layer._launch(*dev, torch.empty_like(got), "general")
+
+
+# The cached route on tables that fit shared memory too: the same bits as the
+# general route's staged tables.
+@pytest.mark.parametrize("n_out,n_words", [(2, 1), (13, 5), (64, 2)])
+def test_packed_layer_cached_route_matches_general(cuda, n_out, n_words):
+    rng = np.random.default_rng(n_out * 7 + n_words)
+    args = _layer_operands(rng, 1001, n_out, n_words, min(2, n_out - 1))
+    dev = [a.to(cuda) for a in args]
+    want = packed_layer.packed_layer_plain(*args)
+    for path in ("general", "cached"):
+        got = _launched(packed_layer.packed_layer, path,
+                        lambda: packed_layer._launch(*dev, torch.empty((1001, n_out), dtype=torch.int32,
+                                                                      device=cuda), path))
+        assert torch.equal(got.cpu(), want)
+
+
 # FIVE_TUPLE's packed layers at their shapes (4, 2 and 1 words; the 2-neuron
 # output layer takes general) and the scan plan's stacked layers, whose pad
 # neurons must never fire.
@@ -729,15 +763,41 @@ def test_packed_layer_routed_matches_plain(cuda, tenants, n_out, n_words, batch)
     want = packed_layer.packed_layer_routed_plain(*args)
     fn = packed_layer.packed_layer_routed
     dev = [a.to(cuda) for a in args]
-    before = fn.launches
+    assert packed_layer.routed_route(dev[0], *dev[2:]) == "general"
+    before = (fn.launches, fn.launches_by_route["general"])
     got = fn(*dev)
     torch.cuda.synchronize()
-    assert fn.launches == before + int(batch > 0)
+    assert (fn.launches, fn.launches_by_route["general"]) == tuple(n + int(batch > 0) for n in before)
     assert torch.equal(got.cpu(), want)
     assert not got[:, -1].any()
     # Misaligned views of the words and the ids.
     for nbytes in (4, 8) if batch else ():
         assert torch.equal(fn(_shifted(dev[0], nbytes), _shifted(dev[1], nbytes), *dev[2:]).cpu(), want)
+
+
+@pytest.mark.parametrize("tenants", [1, 3, 128])
+@pytest.mark.parametrize("n_out", [4, 64, 1024])
+@pytest.mark.parametrize("n_words", [1, 2, 4])
+@pytest.mark.parametrize("batch", [0, 1, 1001])
+def test_packed_layer_routed_quad_route_matches_plain(cuda, tenants, n_out, n_words, batch):
+    """The quad route (4 neurons a thread) against the plain version, with
+    each tenant's last neuron a never-firing pad and high-bit words; the
+    general route, forced, on the same operands."""
+    rng = np.random.default_rng(tenants * 1000 + n_out * 10 + n_words + batch + 7)
+    args = _routed_operands(rng, batch, tenants, n_out, n_words)
+    want = packed_layer.packed_layer_routed_plain(*args)
+    fn = packed_layer.packed_layer_routed
+    dev = [a.to(cuda) for a in args]
+    assert packed_layer.routed_route(dev[0], *dev[2:]) == "quad"
+    before = dict(fn.launches_by_route)
+    got = fn(*dev)
+    torch.cuda.synchronize()
+    assert {p: fn.launches_by_route[p] - before[p] for p in before} == {"quad": int(batch > 0), "general": 0}
+    assert torch.equal(got.cpu(), want)
+    assert not got[:, -1].any()
+    if batch:
+        general = packed_layer._launch_routed(*dev, torch.empty_like(got), "general")
+        assert torch.equal(general.cpu(), want)
 
 
 def test_packed_layer_routed_refuses_out_of_range_ids_and_grad(cuda):
@@ -746,10 +806,10 @@ def test_packed_layer_routed_refuses_out_of_range_ids_and_grad(cuda):
     for bad in (3, -1, 1 << 30):
         ids = args[1].clone()
         ids[17] = bad
-        before = fn.launches
+        before = (fn.launches, dict(fn.launches_by_route))
         with pytest.raises(ValueError, match=r"outside \[0, 3\)"):
             fn(args[0], ids, *args[2:])
-        assert fn.launches == before
+        assert (fn.launches, fn.launches_by_route) == before
     # int32 operands cannot require grad, so under grad mode the kernel
     # launches and its output needs none; a float operand is refused.
     with torch.enable_grad():
@@ -793,12 +853,10 @@ def test_scheduler_on_cuda_matches_cpu(cuda, mode, layout, backend):
         np.testing.assert_array_equal(gpu.outputs_for(t), cpu.outputs_for(t))
 
 
-def test_merged_op_table_beyond_shared_memory_raises(cuda):
-    """32 tenants of benchmarks/multitenant_bench.py interleaved: 1,833
-    registers, more than one packet's share of a block's shared memory at
-    the kernel's smallest block.  The op-table dispatch refuses, naming the
-    limit and the register count, before any chunk runs; the packed
-    dispatch serves the same tenants."""
+def _benchmark_pool_scheduler(count):
+    """``count`` tenants of benchmarks/multitenant_bench.py's pool (its six
+    shapes in turn, weights from a seed) on a chip sized to admit them
+    merged, and their traffic specs."""
     from repro_torch.dataplane.lowering import lower_program, peak_stage_rows
     from repro_torch.dataplane.multitenant import SwitchScheduler
 
@@ -806,7 +864,7 @@ def test_merged_op_table_beyond_shared_memory_raises(cuda):
     scen = ("ddos_burst", "iot_telemetry", "flow_tuple", "adversarial_bitflip", "uniform_random")
     rng = np.random.default_rng(3)
     progs, specs = [], []
-    for i in range(32):
+    for i in range(count):
         shape = shapes[i % len(shapes)]
         progs.append(compiler.compile_bnn(
             [rng.integers(0, 2, (shape[j + 1], shape[j])).astype(np.int32) for j in range(len(shape) - 1)]))
@@ -818,14 +876,160 @@ def test_merged_op_table_beyond_shared_memory_raises(cuda):
     sched = SwitchScheduler(chip, mode="merged")
     for i, p in enumerate(progs):
         sched.admit(p, name=f"t{i}")
-    num_regs = sched.merged("interleave").lowered.num_regs
-    assert num_regs == 1833
+    return sched, specs
+
+
+@pytest.mark.parametrize("layout", ["interleave", "concat"])
+def test_merged_op_table_beyond_shared_memory_serves(cuda, layout):
+    """32 tenants of benchmarks/multitenant_bench.py merged: 1,833
+    registers, more than one packet's share of a block's shared memory at
+    the kernel's smallest block.  The op-table dispatch serves them on the
+    global route, every launch, and each tenant gets what the CPU scheduler
+    gives it (the packed dispatch too)."""
+    sched, specs = _benchmark_pool_scheduler(32)
+    lp = sched.merged(layout).lowered
+    assert lp.num_regs == 1833
+    plan, _ = optable_exec.prepare(tuple(executor._i32(getattr(lp, n)) for n in TABLES), lp.num_regs)
+    assert optable_exec.route(plan, lp.num_regs) == "global"
     pair = traffic.mixed_tenant_generate(specs, 512, seed=0)
-    before = optable_exec.optable_run.launches
-    with pytest.raises(ValueError, match=rf"{num_regs} registers .* beyond the 232448 B limit"):
-        sched.run(pair, backend="jnp", device=cuda)
-    assert optable_exec.optable_run.launches == before
-    packed = sched.run(pair, backend="packed", device=cuda)
-    cpu = sched.run(pair, backend="packed", device="cpu")
+    fn = optable_exec.optable_run
+    before = (fn.launches, dict(fn.launches_by_route))
+    gpu = sched.run(pair, merged=layout, backend="jnp", chunk_size=200, device=cuda)
+    launched = fn.launches - before[0]
+    assert launched == gpu.chunks + 1  # every chunk and the warm call
+    assert {p: fn.launches_by_route[p] - before[1][p] for p in before[1]} == {"shared": 0, "global": launched}
+    cpu = sched.run(pair, merged=layout, backend="jnp", chunk_size=200, device="cpu")
+    layer = packed_layer.packed_layer
+    layer_before = dict(layer.launches_by_route)
+    packed = sched.run(pair, merged=layout, backend="packed", chunk_size=200, device=cuda)
+    if layout == "concat":  # its block-diagonal 916 x 32-word layer is past shared memory
+        assert layer.launches_by_route["cached"] - layer_before["cached"] == packed.chunks + 1
     for t in range(32):
+        a, b = gpu.stats_for(t), cpu.stats_for(t)
+        assert (a.packets, a.served, a.dropped) == (b.packets, b.served, b.dropped)
+        np.testing.assert_array_equal(gpu.outputs_for(t), cpu.outputs_for(t))
         np.testing.assert_array_equal(packed.outputs_for(t), cpu.outputs_for(t))
+
+
+def test_interleaved_packed_dispatch_makes_no_host_sync(cuda):
+    """One interleaved packed dispatch, as the scheduler makes it (the ids
+    checked on the host before the upload), launches without reading
+    anything back from the device up to its copy back; the public
+    ``packed_layer_routed`` reads the ids' range back, and the sync check
+    catches that."""
+    sched = _scheduler3()
+    specs = [traffic.TenantTrafficSpec(*s) for s in SPECS3]
+    tids, bits = traffic.mixed_tenant_generate(specs, 3000, seed=4)
+    lowereds = tuple(t.lowered for t in sched.tenants)
+    fn = executor.routed_packed_stacked_fn(lowereds, device=cuda)
+    d_tids, d_bits = executor._to_device(tids, cuda), executor._to_device(bits, cuda)
+    fn(d_bits, d_tids)  # builds the kernels
+    words = bitpack.pack_bits_words(d_bits[:, :32].contiguous())
+    w, thr, m, _ = (executor._i32(a).to(cuda) if i < 3 else a
+                    for i, a in enumerate(executor.stack_tenant_layers(lowereds)[0]))
+    torch.cuda.synchronize()
+    routed = packed_layer.packed_layer_routed
+    before = dict(routed.launches_by_route)
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        out = fn(d_bits, d_tids)
+        with pytest.raises(RuntimeError):
+            routed(words, d_tids, w, m, thr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    depth = len(executor.stack_tenant_layers(lowereds))
+    assert {p: routed.launches_by_route[p] - before[p] for p in before} == {"quad": depth, "general": 0}
+    want = executor.routed_packed_stacked_fn(lowereds, device="cpu")(torch.from_numpy(bits), torch.from_numpy(tids))
+    assert torch.equal(out.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# The op-table kernel's global route, forced, against the plain version
+# ---------------------------------------------------------------------------
+
+def _fuzz_lowered(sizes, weight_seed, mode, threshold_seed):
+    """A random program as tests/strategies.py's ``build_case`` makes one
+    (weights and SIGN thresholds from the case's seeds; widths crossing the
+    32-bit word, so popcounts FOLD), compiled by the port's compiler: that
+    module imports the JAX package, which a card's machine may lack."""
+    rng = np.random.default_rng(weight_seed)
+    params = [rng.integers(0, 2, (sizes[i + 1], sizes[i])).astype(np.int32) for i in range(len(sizes) - 1)]
+    thresholds = None
+    if mode != "default":
+        trng = np.random.default_rng(threshold_seed)
+        thresholds = [int(trng.integers(0, w.shape[1] + 2)) if mode == "scalar"
+                      else trng.integers(0, w.shape[1] + 2, w.shape[0]).astype(np.int32) for w in params]
+    return compiler.compile_bnn(params, thresholds=thresholds).lower()
+
+
+FUZZ = {
+    "fuzz_a": ((40, 33, 7), 11, "per_neuron", 12),
+    "fuzz_b": ((48, 48), 21, "scalar", 22),
+    "fuzz_c": ((33, 5, 40, 2), 31, "default", 0),
+}
+
+
+def _relocated(tables, offset):
+    """The op-table with every slot (dst, src0, src1) moved up by ``offset``."""
+    return tuple(t + offset if name in ("dst", "src0", "src1") else t for name, t in zip(TABLES, tables))
+
+
+def _global_program(name, cuda):
+    """(tables, num_regs): a program, or one moved to the top of a register
+    file past what the shared route holds (``*_wide``)."""
+    base = name.removesuffix("_wide")
+    if base == "hand":
+        tables, num_regs = _hand_tables(cuda), 6
+    else:
+        lp = (_fuzz_lowered(*FUZZ[base]) if base in FUZZ
+              else _lowered((128, 64, 32, 2) if base == "five_tuple" else (32, 64, 32), seed=9))
+        tables, num_regs = tuple(executor._i32(getattr(lp, n)).to(cuda) for n in TABLES), lp.num_regs
+    if name.endswith("_wide"):
+        wide = 3000
+        tables, num_regs = _relocated(tables, wide - num_regs), wide
+    return tables, num_regs
+
+
+@pytest.mark.parametrize("program", ["hand", *FUZZ, "headline", "five_tuple", "hand_wide", "fuzz_a_wide"])
+@pytest.mark.parametrize("batch", [0, 1, 1001, 32768 + 7])
+def test_optable_global_route_matches_plain(cuda, program, batch):
+    tables, num_regs = _global_program(program, cuda)
+    regs = _any_regs(num_regs, batch, cuda, seed=batch + 1)
+    plan, records = optable_exec.prepare(tables, num_regs)
+    if program in FUZZ:  # FOLD continuations and deferred rows are on the path
+        assert (tables[TABLES.index("first_write")] == 0).any() and plan.deferred.any()
+    assert optable_exec.route(plan, num_regs) == ("global" if program.endswith("_wide") else "shared")
+    fn = optable_exec.optable_run
+    before = dict(fn.launches_by_route)
+    out = optable_exec._launch(regs, plan, records, "global")
+    want = optable_exec.optable_run_plain(regs, *tables)
+    torch.cuda.synchronize()
+    assert {p: fn.launches_by_route[p] - before[p] for p in before} == {"shared": 0, "global": int(batch > 0)}
+    assert out.shape == regs.shape and out.is_contiguous()
+    assert torch.equal(out, want)
+    if program.endswith("_wide"):
+        assert torch.equal(fn(regs, *tables), want)  # the public wrapper takes the global route itself
+        with pytest.raises(ValueError, match="shared memory"):
+            optable_exec._launch(regs, plan, records, "shared")
+
+
+def test_optable_global_route_indexes_past_2_31(cuda):
+    """The hand-made program at the top of a 65,532-register file (the
+    records' 16-bit slots allow 65,536 with its 4 scratch rows) over 32,775
+    packets: slot x batch passes 2^31 from slot 65,523.  The program's six
+    registers come out as the plain version gives them on those six alone,
+    and every other register as it went in."""
+    num_regs, batch = 65532, 32768 + 7
+    top = num_regs - 6
+    assert (top - 4) * batch < 2 ** 31 <= top * batch  # every slot of the program is past it
+    tables = _relocated(_hand_tables(cuda), top)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    regs = torch.randint(0, 1 << 30, (num_regs, batch), dtype=torch.int32, device=cuda, generator=gen)
+    regs[top:] = _any_regs(6, batch, cuda, seed=5)
+    plan, _ = optable_exec.prepare(tables, num_regs)
+    assert optable_exec.route(plan, num_regs) == "global" and num_regs + plan.max_deferred == 1 << 16
+    out = optable_exec.optable_run(regs, *tables)
+    want = optable_exec.optable_run_plain(regs[top:].contiguous(), *_hand_tables(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(out[top:], want)
+    assert torch.equal(out[:top], regs[:top])
