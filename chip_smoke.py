@@ -41,15 +41,38 @@ What it does, in order:
    interpreter and the BNN oracle; ``optable_run`` launches hops x (chunks
    + 1) times a run, the packed kernels layers x (chunks + 1); the unsliced
    program through ``execute_stream`` (one switch) is the baseline;
-6. train -> export -> deploy: ``BnnTrainer(BnnTrainConfig())`` (the default
+6. fleets of switches, on ``benchmarks/fleet_bench.py``'s workload (the
+   headline model, per-stream chunks of 16 packets, 20 blocks): ``optable_run``
+   (``shared``), ``pack_bits_words`` (``vec``) and ``packed_layer`` (each
+   layer's route) held against their plain versions at a fleet block of 64
+   and of 10,240 streams (1,024 and 163,840 packets) and timed there with
+   their bounds; then, as the benchmark times them (replicas of one 320 x 32
+   array of uniform bits, each run twice and the second timed), one stream
+   through ``execute_stream`` at chunk 16 and ``execute_fleet`` at 4 to
+   10,240 streams on the packed backend, at 64 and 10,240 on the op-table
+   backend, each run's launches exactly its path's (a block and the warm
+   call: a ``pack_bits_words`` and a ``packed_layer`` a layer, or one
+   ``optable_run``), with ingest (``fleet_blocks``), execute and the rest of
+   the call timed apart; distinct streams of unequal lengths (uniform bits
+   seeded by stream index, one empty) at 64 and 10,240 streams on both
+   backends, directly and through ``plan.run``, every stream bit-exact with
+   one ``executor.execute`` over all streams' packets and, on the first
+   block, with the interpreter and the BNN oracle, its count and the bit
+   counts those of its outputs; ``FleetEngine`` over the same streams (with
+   observability on and an SLO set: its ``health()`` printed, its bound the
+   probe's) and over replicas, timed, no ``fleet-ingest`` thread left alive.
+   Every run prints its ``roofline.dataplane`` bound and the fraction of it
+   reached, which must be in (0, 1] (so must the main path's two runs);
+7. train -> export -> deploy: ``BnnTrainer(BnnTrainConfig())`` (the default
    ``(32, 128, 64, 1)`` model, 600 steps of batch 512, ``iot_telemetry``
    against ``ddos_burst``) trains on the card to at least 90% held-out
    accuracy, exports, and ``verify_roundtrip`` over a 5-hop ``multi_hop``
    fabric (op-table and packed backends) finds no packet where the oracle,
    the executor, the fabric and the trainer's own forward bits disagree;
-7. multi-tenant switch scheduling (``SwitchScheduler``), on the tenant pool
+8. multi-tenant switch scheduling (``SwitchScheduler``), on the tenant pool
    of ``benchmarks/multitenant_bench.py`` (six BNN shapes repeated, weights
-   from fixed seeds, the shared chip sized as there), 2**20 mixed packets
+   from fixed seeds, built by ``build_fleet`` as ``program=`` tenants, whose
+   shared chip must be the one sized there), 2**20 mixed packets
    arriving in chunks of 1024 (``quantum`` 1024):
    a. 8 tenants in ``merged``/``interleave``, ``merged``/``concat`` and
       ``time_sliced``, each on the packed and the op-table backend; 128
@@ -81,7 +104,7 @@ What it does, in order:
    ``interleave`` at 1024 (``global``), each timed with its bound, and
    ``packed_layer`` on each block-diagonal layer of the 8- and 32-tenant
    merges on the route it takes (``cached`` timed with its bound);
-8. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
+9. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
    fixed seed):
    a. holds ``bnn_matmul_packed`` (bit for bit, at the decode and prefill
       shapes of the model's three projection shapes, on the stream and the
@@ -107,9 +130,12 @@ What it does, in order:
       ``attn_impl="pallas_flash"`` (one ``flash_attention`` launch per
       layer, every one on the tma route), and holds a 2-layer float32
       copy's flash logits against its plain-attention logits;
-9. prints one JSON line of per-kernel numbers, then the status line.  The
-   packet kernels' ``launches`` sum their ``launches_by_path``, and
-   ``launches_by_route`` splits the same launches by route.
+10. prints one JSON line of per-kernel numbers, then the status line.  The
+   packet kernels' ``launches`` sum their ``launches_by_path`` (the fleet
+   phase's runs under ``fleet``), and ``launches_by_route`` splits the same
+   launches by route.  Every bound is ``repro_torch.roofline``'s: the
+   kernels' bytes and operations (``roofline.kernels``) over the H100 peaks
+   (``roofline.hw``).
 
 Every path is driven with all launch counts zeroed just before it and read
 just after.  Serving and scoring run under ``torch.inference_mode()``.  Any failure raises, so the script exits non-zero; it also exits
@@ -124,6 +150,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -137,9 +164,18 @@ from repro_torch.core import bitops, bnn, compiler, interpreter  # noqa: E402
 from repro_torch.core.export import verify_roundtrip  # noqa: E402
 from repro_torch.core.pipeline import MAX_FIELDS, RMT, RMT_NATIVE_POPCNT, ChipSpec  # noqa: E402
 from repro_torch.dataplane import executor, lowering, pcap, traffic  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.dataplane import fleet  # noqa: E402
+from repro_torch.dataplane.factory import Fleet, FleetSpec, TenantSpec, build_fleet  # noqa: E402
+from repro_torch.dataplane.plan import ExecutionPlan  # noqa: E402
+from repro_torch.dataplane.plan import run as plan_run  # noqa: E402
 from repro_torch.dataplane.multitenant import SwitchScheduler  # noqa: E402
 from repro_torch.dataplane.fabric import MODES, SwitchFabric  # noqa: E402
 from repro_torch.kernels import _build, bitpack, optable_exec, packed_layer  # noqa: E402
+from repro_torch.obs.slo import SloSpec  # noqa: E402
+from repro_torch.roofline import dataplane as roofline  # noqa: E402
+from repro_torch.roofline import kernels as costs  # noqa: E402
+from repro_torch.serving.engine import FleetEngine  # noqa: E402
 from repro_torch import models  # noqa: E402
 from repro_torch.configs.base import QuantConfig, get_config  # noqa: E402
 from repro_torch.kernels import bnn_matmul, bnn_matmul_mxu, flash_attention, ref  # noqa: E402
@@ -156,18 +192,14 @@ CHUNK_REPS = 16
 SEED = 0
 SCENARIO = "ddos_burst"
 
-# Peak rates of one H100 SXM at its 700 W limit.  Bytes: NVIDIA's data sheet
-# (3.35 TB/s HBM3).  The kernels do 32-bit integer work outside the tensor
-# cores: 64 INT32 lanes per SM (Hopper architecture white paper) x 132 SMs
-# x 1.98 GHz boost clock.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# Population count runs at 16 results per SM per clock on compute capability
-# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput table):
-# the packed GEMM's limiting operation.  Dense bf16 on the tensor cores:
-# 989 TFLOP/s (H100 SXM data sheet).
-POPC_PER_S = 16 * 132 * 1.98e9
-BF16_TENSOR_FLOPS = 989e12
+# Fleets: benchmarks/fleet_bench.py's workload (:40-140): per-stream chunks
+# of 16 packets (FLEET_BENCH_CHUNK), 20 blocks, fleets of 4 to 10,240
+# streams (FLEET_BENCH_STREAMS and _fleet_sizes), the gate fleet of 64.
+FLEET_CHUNK = 16
+FLEET_BLOCKS = 20
+FLEET_STREAMS = (4, 16, 64, 256, 1024, 4096, 10240)
+FLEET_GATE = 64
+FLEET_OPTABLE = (FLEET_GATE, FLEET_STREAMS[-1])  # fleets also timed on the op-table backend
 
 FABRIC_HOPS = 4        # FIVE_TUPLE's 122 elements on the 32-element RMT chip
 TRAIN_HOPS = 5         # the trainer's default model: 159 elements
@@ -221,13 +253,6 @@ def time_ms(fn, *args, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float, rate: float = INT32_OPS_PER_S) -> tuple[float, str]:
-    """Least time the card could take: bytes over HBM rate vs operations over
-    their peak ``rate`` (default the INT32 rate), whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def same(what: str, out: torch.Tensor, ref: torch.Tensor) -> int:
     """Fail unless ``out`` equals ``ref`` bit for bit; returns the max
     absolute difference measured (0 when it returns)."""
@@ -253,10 +278,9 @@ def build_kernels() -> None:
 
 
 def optable_bound(lowered, plan, batch: int) -> tuple[float, str]:
-    """``bound_ms`` of one program over ``batch`` packets, whatever the
-    route: the register file read and written once and the records read
-    once; an ALU operation, the mask and the write-back per true row."""
-    return bound_ms(2 * lowered.num_regs * batch * 4 + plan.records.nbytes, 3 * lowered.num_ops * batch)
+    """The bound of one program over ``batch`` packets, whatever the route
+    (``roofline.kernels.optable_run``)."""
+    return costs.optable_run(lowered.num_regs, batch, lowered.num_ops, plan.records.nbytes).bound_ms()
 
 
 def check_optable(dev, programs: dict) -> dict:
@@ -376,15 +400,12 @@ def check_bitpack(dev, layer_inputs) -> dict:
         x = planted((m, k), torch.bfloat16, gen, dev)
         err = max(err, same(f"bitpack bf16 ({m}, {k}) (vec)", routed(bp, "vec", lambda: bp(x)),
                             bitpack.pack_ge_plain(x, 0)))
-    plain = nbytes = ops = 0.0
+    plain = 0.0
     for h in layer_inputs:
         err = max(err, same(f"pack_bits_words {tuple(h.shape)} (vec)", routed(pbw, "vec", lambda: pbw(h)),
                             bitpack.pack_ge_plain(h, 1)))
-        m, n = h.shape
         plain += time_ms(bitpack.pack_ge_plain, h, 1, iters=5)
-        nbytes += m * n * 4 + m * bitpack.num_words(n) * 4
-        ops += m * n
-    b_ms, b_by = bound_ms(nbytes, ops)
+    b_ms, b_by = costs.total(costs.bitpack(*h.shape) for h in layer_inputs).bound_ms()
     back_to_back = sum(time_ms(pbw, h) for h in layer_inputs)
 
     def chunk(path, rows=CHUNK):
@@ -414,10 +435,9 @@ def check_bitpack(dev, layer_inputs) -> dict:
         "bf16 scalar": lambda: [bitpack._launch(x, o, 0, "scalar", bp) for x, o in flat],
         "cast + float32 vec": lambda: [bitpack._launch(x.float(), o, 0, "vec", bp) for x, o in flat],
     })
-    decode_bytes = sum(DECODE_M * k * 2 + DECODE_M * k // 8 for k in ks)
     print(f"  bitpack bf16 per decode layer (7 launches, M={DECODE_M}), graph replay: "
           + ", ".join(f"{name} {v / GRAPH_LAYERS} ms" for name, v in t.items())
-          + f"; bound {bound_ms(decode_bytes, sum(DECODE_M * k for k in ks))[0]} ms")
+          + f"; bound {costs.total(costs.bitpack(DECODE_M, k, 2) for k in ks).bound_ms()[0]} ms")
     # Scoring shapes: distinct inputs, 100 MB or more a graph (twice the L2),
     # so each launch reads from device memory.
     for k in (3072, 8192):
@@ -428,7 +448,7 @@ def check_bitpack(dev, layer_inputs) -> dict:
                                                        for x, o in zip(xs, outs)])
                              for path in ("vec", "scalar")})
         t = {path: v / copies for path, v in t.items()}
-        sb_ms, sb_by = bound_ms(2048 * k * 2 + 2048 * k // 8, 2048 * k)
+        sb_ms, sb_by = costs.bitpack(2048, k, 2).bound_ms()
         print(f"  bitpack bf16 (2048, {k}), graph replay over {copies} inputs, per launch: vec {t['vec']} ms "
               f"({t['vec'] / sb_ms} x bound), scalar {t['scalar']} ms; bound {sb_ms} ms ({sb_by})")
         del xs, outs
@@ -459,8 +479,8 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
                 executor._i32(mask).to(dev), executor._i32(thresholds).to(dev))
 
     err = 0
-    plain = nbytes = ops = back_to_back = 0.0
-    chunk_args = []
+    plain = back_to_back = 0.0
+    chunk_args, layer_costs = [], []
     for pl, h in zip(lp.packed.layers, layer_inputs):
         args = operands(pl.weights, pl.mask, pl.thresholds, h)
         want = packed_layer.packed_layer_plain(*args)
@@ -469,13 +489,11 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
             err = max(err, same(f"packed_layer {pl.n_in}->{pl.n_out} ({CHUNK} packets, {path})",
                                 routed(fn, path, lambda: packed_layer._launch(*args, out, path)), want))
         routed(fn, "quad", lambda: fn(*args))
-        (b, w), n_out = args[0].shape, pl.n_out
         back_to_back += time_ms(fn, *args)
         plain += time_ms(packed_layer.packed_layer_plain, *args, iters=5)
-        nbytes += (b * w + 2 * n_out * w + n_out + b * n_out) * 4
-        ops += b * n_out * (5 * w + 1)  # xor, not, and, popc, add per word; compare
+        layer_costs.append(costs.packed_layer(*args[0].shape, pl.n_out))
         chunk_args.append((args, torch.empty_like(want)))
-    b_ms, b_by = bound_ms(nbytes, ops)
+    b_ms, b_by = costs.total(layer_costs).bound_ms()
 
     def stacked(lowered, h, label):
         nonlocal err
@@ -568,11 +586,12 @@ def drive_main_path(dev, lp, records: dict) -> dict:
 
 
 def count_path(records: dict, path: str, launches: dict) -> None:
-    """Add one path's launch counts to the records' ``launches_by_path``,
-    and its launches by route (read now, right after the path) to their
-    ``launches_by_route``."""
+    """Add one path's launch counts to the records' ``launches_by_path``
+    (a path driven by several runs sums them), and its launches by route
+    (read now, right after the path) to their ``launches_by_route``."""
     for name, n in launches.items():
-        records[name].setdefault("launches_by_path", {})[path] = n
+        by_path = records[name].setdefault("launches_by_path", {})
+        by_path[path] = by_path.get(path, 0) + n
         by_route = getattr(COUNTED[name], "launches_by_route", None)
         if by_route:
             total = records[name].setdefault("launches_by_route", dict.fromkeys(by_route, 0))
@@ -668,6 +687,271 @@ def drive_fabric(dev, prog, params, records: dict) -> None:
           f"run_program == bnn.forward")
 
 
+# ---------------------------------------------------------------------------
+# Fleets of switches
+# ---------------------------------------------------------------------------
+
+def fleet_check_kernels(dev, lp, x: np.ndarray, records: dict) -> None:
+    """The three kernels of the fleet's dispatch against their plain versions
+    at the batches a fleet gives them (the gate fleet's and the widest
+    fleet's block: 64 and 10,240 streams of FLEET_CHUNK packets), on the
+    routes they take there, each timed with its bound.  Not counted as
+    main-path launches."""
+    run, pbw, fn = optable_exec.optable_run, bitpack.pack_bits_words, packed_layer.packed_layer
+    t = executor._device_tables(lp, dev)
+    tables = (*t.ops, t.first_write)
+    plan, _ = optable_exec.prepare(tables, lp.num_regs)
+    for streams in (FLEET_GATE, FLEET_STREAMS[-1]):
+        n = streams * FLEET_CHUNK
+        pkt = torch.from_numpy(np.resize(x, (n, x.shape[1]))).to(dev)
+        regs = executor.parse_packets(pkt, *t.io[:2], num_regs=lp.num_regs)
+        rec = records["optable_run"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], same(
+            f"optable_run HEADLINE, fleet block of {streams} x {FLEET_CHUNK} = {n} packets (shared)",
+            routed(run, "shared", lambda: run(regs, *tables)), optable_exec.optable_run_plain(regs, *tables)))
+        rec[f"ms_fleet_{n}"] = time_ms(run, regs, *tables)
+        rec[f"bound_ms_fleet_{n}"] = optable_bound(lp, plan, n)[0]
+        h = pkt
+        pack_ms = layer_ms = 0.0
+        pack_costs, layer_costs = [], []
+        for pl in lp.packed.layers:
+            words = routed(pbw, "vec", lambda: pbw(h))
+            rec = records["pack_bits_words"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], same(
+                f"pack_bits_words {tuple(h.shape)}, fleet block (vec)", words, bitpack.pack_ge_plain(h, 1)))
+            pack_ms += time_ms(pbw, h)
+            pack_costs.append(costs.bitpack(*h.shape))
+            args = (words, executor._i32(pl.weights).to(dev), executor._i32(pl.mask).to(dev),
+                    executor._i32(pl.thresholds).to(dev))
+            path = packed_layer.route(*args[:2])
+            out = routed(fn, path, lambda: fn(*args))
+            rec = records["packed_layer"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], same(
+                f"packed_layer {pl.n_in}->{pl.n_out}, fleet block of {n} packets ({path})",
+                out, packed_layer.packed_layer_plain(*args)))
+            layer_ms += time_ms(fn, *args)
+            layer_costs.append(costs.packed_layer(n, pl.n_words, pl.n_out))
+            h = out
+        records["pack_bits_words"][f"ms_fleet_{n}"] = pack_ms
+        records["pack_bits_words"][f"bound_ms_fleet_{n}"] = costs.total(pack_costs).bound_ms()[0]
+        records["packed_layer"][f"ms_fleet_{n}"] = layer_ms
+        records["packed_layer"][f"bound_ms_fleet_{n}"] = costs.total(layer_costs).bound_ms()[0]
+        # The block's output bits copied to the host as a fleet run's clock
+        # takes them (``.cpu()``, pageable) and into a pinned buffer made
+        # once (host clock, 5 copies after a warm one).
+        pinned = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
+        copy_ms = {}
+        for name, copy in (("pageable", lambda: h.cpu().numpy()), ("pinned", lambda: pinned.copy_(h))):
+            copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                copy()
+            copy_ms[name] = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"    fleet block of {n} packets, back to back (events): optable_run "
+              f"{records['optable_run'][f'ms_fleet_{n}']} ms (bound {records['optable_run'][f'bound_ms_fleet_{n}']}); "
+              f"pack_bits_words {pack_ms} ms (bound {records['pack_bits_words'][f'bound_ms_fleet_{n}']}); "
+              f"packed_layer {layer_ms} ms (bound {records['packed_layer'][f'bound_ms_fleet_{n}']}); its "
+              f"{tuple(h.shape)} int32 output bits to the host: {copy_ms} ms")
+
+
+def fleet_launches(lp, backend: str, blocks: int) -> dict:
+    """The launches a fleet run's path makes: its blocks and the warm call,
+    one ``optable_run`` each on the op-table backend, a ``pack_bits_words``
+    and a ``packed_layer`` a layer on the packed backend."""
+    runs = blocks + 1
+    if backend == "jnp":
+        return {"optable_run": runs}
+    layers = len(lp.packed.layers)
+    return {"pack_bits_words": layers * runs, "packed_layer": layers * runs}
+
+
+def fleet_run(label: str, lp, backend: str, call, records: dict):
+    """``call()`` with every launch count zeroed just before and read just
+    after: the launches must be exactly those of the path
+    (``fleet_launches``), every ``optable_run`` on ``shared``, every
+    ``pack_bits_words`` on ``vec`` and each ``packed_layer`` launch on its
+    layer's route.  Counted as the ``fleet`` path.  Returns ``call()``'s
+    result and the launches by kernel, each with its launches by route."""
+    torch.cuda.synchronize()
+    zero_counts()
+    res = call()
+    launches = read_counts()
+    expect = fleet_launches(lp, backend, res.chunks)
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+    check_optable_route(label, launches)
+    if bitpack.pack_bits_words.launches_by_route["vec"] != launches.get("pack_bits_words", 0):
+        raise AssertionError(f"{label}: pack_bits_words by route {bitpack.pack_bits_words.launches_by_route}")
+    layer_by_route = dict(packed_layer.packed_layer.launches_by_route)
+    if "packed_layer" in launches and layer_by_route != layer_routes(lp.packed.layers, res.chunks + 1):
+        raise AssertionError(f"{label}: packed_layer by route {layer_by_route}")
+    count_path(records, "fleet", launches)
+    return res, {name: (n, dict(getattr(COUNTED[name], "launches_by_route", {}))) for name, n in launches.items()}
+
+
+def probe_line(rf, pps: float) -> str:
+    """The dispatch's bound and the fraction of it reached; fails unless the
+    fraction is in (0, 1]."""
+    frac = rf.fraction(pps)
+    if not 0 < frac <= 1:
+        raise AssertionError(f"roofline {rf.path}: fraction {frac} of {rf.roofline_pps} pkt/s not in (0, 1]")
+    return (f"roofline {rf.path} (chunk {rf.chunk} x {rf.streams}): bound {rf.roofline_pps} pkt/s "
+            f"({rf.bottleneck}; {rf.bytes_per_packet} bytes a packet), fraction {frac}")
+
+
+def fleet_wants(dev, prog, lp, params, streams: list) -> np.ndarray:
+    """One ``executor.execute`` over every stream's packets; on each stream's
+    first block (its first FLEET_CHUNK packets) the interpreter and the BNN
+    oracle must agree with it."""
+    want = executor.execute(lp, np.concatenate(streams), chunk_size=CHUNK, device=dev)
+    starts = np.cumsum([0] + [len(s) for s in streams])
+    head = np.concatenate([s[:FLEET_CHUNK] for s in streams])
+    rows = np.concatenate([np.arange(a, a + min(FLEET_CHUNK, b - a)) for a, b in zip(starts, starts[1:])])
+    dev_head = torch.from_numpy(head).to(dev)
+    witness = interpreter.run_program(prog, dev_head, device=dev).cpu().numpy()
+    oracle = bnn.forward([p.to(dev) for p in params], dev_head).cpu().numpy()
+    if not (np.array_equal(want[rows], witness) and np.array_equal(witness, oracle)):
+        raise AssertionError(f"{len(streams)} streams: execute, run_program and bnn.forward disagree on the "
+                             f"first block")
+    return want
+
+
+def check_fleet_outputs(label: str, res, streams: list, want: np.ndarray) -> None:
+    """Every stream's outputs are its rows of ``want``, and the per-stream
+    counts and bit counts are those of the outputs."""
+    lengths = np.array([len(s) for s in streams])
+    if not np.array_equal(res.per_stream_packets, lengths):
+        raise AssertionError(f"{label}: per-stream packets disagree with the streams' lengths")
+    starts = np.cumsum(lengths) - lengths
+    for i, (a, n) in enumerate(zip(starts, lengths)):
+        if not np.array_equal(res.outputs[i], want[a:a + n]):
+            raise AssertionError(f"{label}: stream {i} ({n} packets, outputs {res.outputs[i].shape}) disagrees "
+                                 f"with executor.execute")
+    if hasattr(res, "bit_counts") and not np.array_equal(res.bit_counts, want.sum(axis=0, dtype=np.int64)):
+        raise AssertionError(f"{label}: bit counts {res.bit_counts} disagree with the outputs")
+
+
+def fleet_block_times(dev, lp, streams: list) -> dict:
+    """Mean ms a block of each step of an ``execute_fleet`` pass (packed
+    backend), each ended by a synchronise: the block's assembly
+    (``fleet_blocks``), its copy to the card, the dispatch, the copy of
+    its output bits to the host, and the bit counts."""
+    fn = fleet.fleet_fn(lp, backend="packed", device=dev)
+    steps = dict.fromkeys(("ingest", "to_device", "dispatch", "to_host", "accounting"), 0.0)
+    blocks = 0
+    mark = time.perf_counter()
+    for block, valid in fleet.fleet_blocks(fleet._normalize_streams(streams, None), FLEET_CHUNK, lp.input_bits):
+        t = [time.perf_counter()]
+        dev_block = executor._to_device(block, dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = fn(dev_block)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        res = out.cpu().numpy()
+        t.append(time.perf_counter())
+        fleet.block_bit_counts(res, valid)
+        t.append(time.perf_counter())
+        for name, a, b in zip(steps, [mark, *t], t):
+            steps[name] += b - a
+        blocks += 1
+        mark = time.perf_counter()
+    return {name: 1e3 * v / blocks for name, v in steps.items()}
+
+
+def drive_fleet(dev, prog, lp, params, records: dict) -> None:
+    """The fleet phase (module docstring, step 6)."""
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 2, (FLEET_CHUNK * FLEET_BLOCKS, HEADLINE.input_bits)).astype(np.int32)
+    fleet_check_kernels(dev, lp, x, records)
+
+    # Timing, as benchmarks/fleet_bench.py times it: replicas of one array,
+    # each run twice and the second timed.
+    x1 = np.tile(x, (10, 1))
+    for rep in range(2):
+        sr, launches = fleet_run("one stream", lp, "packed", lambda: executor.execute_stream(
+            lp, iter([x1]), backend="packed", chunk_size=FLEET_CHUNK, device=dev), records)
+    single = sr.packets_per_second
+    print(f"fleet, one stream at chunk {FLEET_CHUNK}: {sr.packets} packets in {sr.chunks} chunks, "
+          f"{sr.packets_per_second} pkt/s, {1e6 * sr.seconds / sr.chunks} us per chunk (warm-up "
+          f"{sr.warmup_seconds} s); launches (count, by route) {launches}")
+    runs = [("packed", s) for s in FLEET_STREAMS] + [("jnp", s) for s in FLEET_OPTABLE]
+    for backend, streams in runs:
+        plan = ExecutionPlan(backend=backend, chunk_size=FLEET_CHUNK)
+        reps = [x] * streams
+        t0 = time.perf_counter()
+        for _ in fleet.fleet_blocks(fleet._normalize_streams(reps, None), FLEET_CHUNK, x.shape[1]):
+            pass
+        ingest = time.perf_counter() - t0
+        for rep in range(2):
+            t0 = time.perf_counter()
+            fr, launches = fleet_run(f"fleet of {streams}, {backend}", lp, backend,
+                                     lambda: fleet.execute_fleet(lp, reps, plan=plan, device=dev), records)
+            call = time.perf_counter() - t0
+        rf = roofline.probe_fleet(lp, backend=backend, streams=streams, chunk=FLEET_CHUNK)
+        print(f"fleet of {streams}, {'packed' if backend == 'packed' else 'op-table'}: {fr.packets} packets in "
+              f"{fr.chunks} blocks, {fr.packets_per_second} pkt/s ({fr.packets_per_second / single} x one "
+              f"stream), {1e6 * fr.seconds / fr.chunks} us per block (warm-up {fr.warmup_seconds} s); call "
+              f"{call} s = execute {fr.seconds} + warm-up {fr.warmup_seconds} + ingest {ingest} (fleet_blocks "
+              f"alone) + copies and accounting {call - fr.seconds - fr.warmup_seconds - ingest}; launches "
+              f"(count, by route) {launches}")
+        print("  " + probe_line(rf, fr.packets_per_second))
+        if backend == "packed" and streams >= 4096:
+            print(f"  one pass, each step synchronised, ms a block: {fleet_block_times(dev, lp, reps)}")
+
+    # Correctness: distinct streams (uniform bits seeded by stream index) of
+    # unequal lengths, 0 to FLEET_CHUNK * FLEET_BLOCKS packets.
+    t0 = time.perf_counter()
+    lengths = [(i * 7919) % (FLEET_CHUNK * FLEET_BLOCKS + 1) for i in range(FLEET_STREAMS[-1])]
+    distinct = [traffic.generate("uniform_random", n, HEADLINE.input_bits, seed=i) for i, n in enumerate(lengths)]
+    print(f"fleet: {len(distinct)} distinct streams, {sum(lengths)} packets, made in {time.perf_counter() - t0} s")
+    for streams in (FLEET_GATE, FLEET_STREAMS[-1]):
+        mine = distinct[:streams]
+        want = fleet_wants(dev, prog, lp, params, mine)
+        for backend in ("packed", "jnp"):
+            plan = ExecutionPlan(backend=backend, chunk_size=FLEET_CHUNK, collect=True)
+            label = f"fleet of {streams} distinct streams, {'packed' if backend == 'packed' else 'op-table'}"
+            fr, _ = fleet_run(label, lp, backend, lambda: fleet.execute_fleet(lp, mine, plan=plan, device=dev),
+                              records)
+            check_fleet_outputs(label, fr, mine, want)
+            via_plan, _ = fleet_run(label + " (plan.run)", lp, backend, lambda: plan_run(
+                lp, mine, plan=dataclasses.replace(plan, fleet=streams), device=dev), records)
+            check_fleet_outputs(label + " (plan.run)", via_plan, mine, want)
+        print(f"fleet of {streams} distinct streams: both backends and plan.run bit-exact with executor.execute on "
+              f"every stream; first block == run_program == bnn.forward")
+
+        # FleetEngine: the distinct streams (observability on, an SLO set),
+        # then replicas of x twice, the second timed.
+        slo = SloSpec("fleet", p99_queue_delay_s=0.01, min_pps=1e6)
+        eng = FleetEngine(lp, plan=ExecutionPlan(backend="packed", chunk_size=FLEET_CHUNK), slo=slo, device=dev)
+        obs.enable(reset=True)
+        try:
+            served, _ = fleet_run(f"FleetEngine, {streams} distinct streams", lp, "packed",
+                                  lambda: eng.serve(mine, collect=True), records)
+        finally:
+            obs.disable()
+            obs.reset()
+        check_fleet_outputs(f"FleetEngine, {streams} distinct streams", served, mine, want)
+        health = eng.health()
+        rf = roofline.probe_fleet(lp, backend="packed", streams=streams, chunk=FLEET_CHUNK)
+        if health.roofline_pps_bound != rf.roofline_pps:
+            raise AssertionError(f"FleetEngine health bound {health.roofline_pps_bound}, probe {rf.roofline_pps}")
+        print(health.render())
+        for rep in range(2):
+            sv, launches = fleet_run(f"FleetEngine, {streams} replicas", lp, "packed",
+                                     lambda: eng.serve([x] * streams), records)
+        print(f"FleetEngine, fleet of {streams}, packed: {sv.packets} packets in {sv.chunks} blocks, wall "
+              f"{sv.wall_seconds} s -> {sv.packets_per_second} pkt/s; ingest {sv.ingest_seconds} s, execute "
+              f"{sv.execute_seconds} s, overlap ratio {sv.overlap_ratio}, warm-up {sv.warmup_seconds} s; "
+              f"launches (count, by route) {launches}")
+        print("  " + probe_line(rf, sv.packets_per_second))
+        alive = [t.name for t in threading.enumerate() if t.name == "fleet-ingest"]
+        if alive:
+            raise AssertionError(f"FleetEngine left {len(alive)} ingest thread(s) alive")
+    print(f"fleet: every FleetEngine serve bit-exact with executor.execute; no fleet-ingest thread alive")
+
+
 def drive_train_deploy(dev, records: dict) -> None:
     """Train the default BNN on the card, export it, and prove it bit-exact
     across a TRAIN_HOPS-switch fabric on both backends."""
@@ -703,42 +987,49 @@ def drive_train_deploy(dev, records: dict) -> None:
 
 @dataclasses.dataclass
 class TenantPool:
-    """Tenants' weights (the oracle's), programs and traffic specs, and the
-    shared chip that admits all of them in either merged layout."""
+    """Tenants' weights (the oracle's) and the fleet built from them
+    (``dataplane.factory``: programs, traffic specs, and the shared chip that
+    admits all of them in either merged layout)."""
 
     params: list
-    progs: list
-    specs: list
-    chip: ChipSpec
+    fleet: Fleet
+
+    @property
+    def progs(self) -> list:
+        return self.fleet.programs
+
+    @property
+    def specs(self) -> list:
+        return self.fleet.traffic_specs
 
 
 def tenant_pool(count: int, shapes=MT_SHAPES, scenarios=MT_SCENARIOS, weights=MT_WEIGHTS,
                 seed: int = SEED) -> TenantPool:
-    """Tenant i: shape, scenario and weight by i (benchmarks/
+    """Tenant i (``t{i}``): shape, scenario and weight by i (benchmarks/
     multitenant_bench.py:44-60), weights from ``bnn.init_params`` with
-    generator seed ``seed + i``; the chip sized as at :85-93."""
-    params, progs, specs = [], [], []
+    generator seed ``seed + i``, built by ``build_fleet`` as ``program=``
+    tenants; the factory's chip must be the one the benchmark sizes
+    (:85-93)."""
+    params, tenants = [], []
     for i in range(count):
         shape = shapes[i % len(shapes)]
         p = bnn.init_params(bnn.BnnSpec(shape), torch.Generator().manual_seed(seed + i))
         params.append(p)
-        progs.append(compiler.compile_bnn([w.numpy() for w in p]))
-        specs.append(traffic.TenantTrafficSpec(scenarios[i % len(scenarios)], shape[0],
-                                               weights[i % len(weights)]))
+        tenants.append(TenantSpec(f"t{i}", scenario=scenarios[i % len(scenarios)], weight=weights[i % len(weights)],
+                                  program=compiler.compile_bnn([w.numpy() for w in p])))
+    fleet = build_fleet(FleetSpec(tenants=tuple(tenants)))
+    progs = fleet.programs
     chip = ChipSpec(
         num_elements=sum(p.num_elements for p in progs) + 1,
         phv_bits=sum(p.peak_phv_bits for p in progs),
         max_parallel_ops=max(MAX_FIELDS, lowering.peak_stage_rows([lowering.lower_program(p) for p in progs])),
         name="shared",
     )
-    return TenantPool(params, progs, specs, chip)
-
-
-def scheduler(pool: TenantPool, **kw) -> SwitchScheduler:
-    sched = SwitchScheduler(pool.chip, **kw)
-    for i, (prog, spec) in enumerate(zip(pool.progs, pool.specs)):
-        sched.admit(prog, name=f"t{i}", weight=spec.weight)
-    return sched
+    if fleet.chip != chip:
+        raise AssertionError(f"build_fleet sized {fleet.chip}, the benchmark {chip}")
+    if [s.input_bits for s in fleet.traffic_specs] != [shapes[i % len(shapes)][0] for i in range(count)]:
+        raise AssertionError("build_fleet's traffic specs disagree with the tenants' shapes")
+    return TenantPool(params, fleet)
 
 
 def arrivals(tids: np.ndarray, bits: np.ndarray, chunk: int):
@@ -913,8 +1204,7 @@ def check_merged_kernels(dev, count: int, sched: SwitchScheduler, tids, bits, re
             layer_rec["max_abs_err"] = max(layer_rec["max_abs_err"], err)
             if layer_path == "cached":
                 ms = time_ms(fn, *args)
-                (b, nw), n_out = words.shape, pl.n_out
-                b_ms, b_by = bound_ms((b * nw + 2 * n_out * nw + n_out + b * n_out) * 4, b * n_out * (5 * nw + 1))
+                b_ms, b_by = costs.packed_layer(*words.shape, pl.n_out).bound_ms()
                 key = f"cached_{count}_tenants_{layout}_layer_{li}_chunk_{n}"
                 layer_rec[f"ms_{key}"], layer_rec[f"bound_ms_{key}"] = ms, b_ms
                 print(f"    packed_layer merged {layout}, {count} tenants, layer {li} ({pl.n_out} x {pl.n_words} "
@@ -961,12 +1251,8 @@ def check_packed_layer_routed(dev, pools: dict) -> dict:
         lambda ls=ls, path=path: [packed_layer._launch_routed(*a, path) for a in ls], CHUNK_REPS)
         for (count, rows), ls in chunks.items() for path in packed_layer.ROUTED_ROUTES})
     per_chunk = {name: v / CHUNK_REPS for name, v in t.items()}
-    nbytes = ops = 0.0
-    for words, ids, w, m, thr, out in chunks[8, CHUNK]:
-        (b, nw), (nt, n, _) = words.shape, w.shape
-        nbytes += (b * nw + b + b * n + 2 * nt * n * nw + nt * n) * 4
-        ops += b * n * (5 * nw + 1)  # xor, not, and, popc, add per word; compare
-    b_ms, b_by = bound_ms(nbytes, ops)
+    b_ms, b_by = costs.total(costs.packed_layer_routed(*words.shape, *w.shape[:2])
+                             for words, ids, w, m, thr, out in chunks[8, CHUNK]).bound_ms()
     plain_ms = sum(time_ms(plain, *a[:5], iters=3) for a in chunks[8, CHUNK])
     print(f"  packed_layer_routed per chunk (all layers), graph replay: "
           + ", ".join(f"{name} {v} ms" for name, v in per_chunk.items())
@@ -1001,7 +1287,7 @@ def drive_capture_tenants(dev, records: dict) -> None:
     wants = tenant_wants(dev, pool, tids, bits, PCAP_CHUNK)
     for mode, layout in (("merged", "interleave"), ("time_sliced", None)):
         for backend in ("packed", "jnp"):
-            sched = scheduler(pool, quantum=PCAP_CHUNK)
+            sched = pool.fleet.scheduler(quantum=PCAP_CHUNK)
             res = serve(dev, f"capture tenants, {mode}, {'packed' if backend == 'packed' else 'op-table'}",
                         sched, tids, bits, wants, records, mode=mode, layout=layout, backend=backend,
                         chunk=PCAP_CHUNK)
@@ -1014,7 +1300,7 @@ def drive_capture_tenants(dev, records: dict) -> None:
 
 
 def drive_multitenant(dev, records: dict) -> None:
-    """The multi-tenant phase (module docstring, step 7)."""
+    """The multi-tenant phase (module docstring, step 8)."""
     pools = {}
     for count in (8, MT_WIDE, MT_OVER):
         t0 = time.perf_counter()
@@ -1023,7 +1309,7 @@ def drive_multitenant(dev, records: dict) -> None:
         pools[count] = (pool, tids, bits)
         print(f"multi-tenant pool of {count}: programs and {MT_PACKETS} mixed packets in "
               f"{time.perf_counter() - t0} s")
-    scheds = {count: scheduler(pool, quantum=MT_CHUNK) for count, (pool, _, _) in pools.items()}
+    scheds = {count: pool.fleet.scheduler(quantum=MT_CHUNK) for count, (pool, _, _) in pools.items()}
     sched8 = scheds[8]
     # Every merged program that is served, held against its plain versions:
     # 8 tenants on the shared route; 32 in both layouts and 128 interleaved
@@ -1187,8 +1473,8 @@ def check_bnn_matmul_packed(dev, cfg, gen) -> dict:
     measurement behind ``bnn_matmul.STREAM_MAX_M``."""
     fn = bnn_matmul.bnn_matmul_packed
     err = 0
-    ms = plain = nbytes = popcs = 0.0
-    prefill_ms = 0.0
+    ms = plain = prefill_ms = 0.0
+    decode_costs = []
     for k, n, per_layer in lm_projections(cfg):
         wp, _ = kops.pack_weights(torch.randn((n, k), generator=gen, device=dev))
         for m, path in ((DECODE_M, "stream"), (128, "tiled")):
@@ -1200,9 +1486,7 @@ def check_bnn_matmul_packed(dev, cfg, gen) -> dict:
             if m == DECODE_M:
                 ms += per_layer * t
                 plain += per_layer * time_ms(ref.bnn_matmul_packed_ref, xp, wp, k, iters=3)
-                kw = wp.shape[1]
-                nbytes += per_layer * (m * kw + n * kw + m * n) * 4
-                popcs += per_layer * m * n * kw
+                decode_costs.append(per_layer * costs.bnn_matmul_packed(m, n, wp.shape[1]))
             else:
                 prefill_ms += per_layer * t
     print(f"  bnn_matmul_packed per layer, back to back: decode (M={DECODE_M}) {ms} ms, "
@@ -1249,7 +1533,7 @@ def check_bnn_matmul_packed(dev, cfg, gen) -> dict:
                                 f"tiled M={m}": packed_layers(m, "tiled")}, iters=10)
         sweep[m] = {path: v / GRAPH_LAYERS for path, v in zip(("stream", "tiled"), s_ms.values())}
     print(f"  route sweep, ms per layer by M (graph replay): {json.dumps(sweep)}")
-    b_ms, b_by = bound_ms(nbytes, popcs, POPC_PER_S)
+    b_ms, b_by = costs.total(decode_costs).bound_ms()
     return dict(source="src/repro_torch/csrc/bnn_matmul.cu",
                 replaces="src/repro/kernels/bnn_matmul.py:56",
                 max_abs_err=err, ms=graph_ms["stream"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
@@ -1286,7 +1570,7 @@ def check_bnn_matmul_mxu(dev, cfg, gen) -> dict:
         err = max(err, same(f"bnn_matmul_mxu 1000x{kk}x264 {dtype} with subnormal signs ({path})",
                             routed(mxu, path, lambda: mxu(xp, wp)), plain(xp, wp)))
     xs = ref.sign(x, torch.bfloat16)
-    b_ms, b_by = bound_ms((m * k + k * n) * 2 + m * n * 4, 2 * m * n * k, BF16_TENSOR_FLOPS)
+    b_ms, b_by = costs.bnn_matmul_mxu(m, k, n).bound_ms()
     t = in_turns({"kernel": lambda: mxu(x, w), "library": lambda: torch.matmul(xs, w)})
     return dict(source="src/repro_torch/csrc/bnn_matmul_mxu.cu",
                 replaces="src/repro/kernels/bnn_matmul_mxu.py:45",
@@ -1324,7 +1608,7 @@ def check_flash(dev, cfg, gen) -> dict:
                              plain(qf, kf, vf, causal=causal), 2e-3))
     q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    b_ms, b_by = bound_ms(4 * bh * s * d * 2, 2 * bh * s * s * d, BF16_TENSOR_FLOPS)  # causal half of 4*S^2*D
+    b_ms, b_by = costs.flash_attention(bh, s, d).bound_ms()
     t = in_turns({"kernel": lambda: fa(q, k, v), "library": lambda: sdpa(q4, k4, v4, is_causal=True)})
     return dict(source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:72",
@@ -1480,6 +1764,8 @@ def main() -> int:
         raise AssertionError("packed scan-over-layers plan disagrees with the unrolled plan")
 
     results = drive_main_path(dev, lp, records)
+    for backend, sr in results.items():
+        print(probe_line(roofline.probe_stream(lp, backend=backend, chunk=CHUNK), sr.packets_per_second))
     opt, packed = results["jnp"].outputs, results["packed"].outputs
     if opt.shape != (PACKETS, HEADLINE.output_bits) or opt.max() > 1:
         raise AssertionError(f"unexpected output {opt.shape}, max {opt.max()}")
@@ -1495,6 +1781,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     drive_fabric(dev, five_prog, five, records)
     print(f"fabric phase: {time.perf_counter() - t_phase} s")
+    t_phase = time.perf_counter()
+    drive_fleet(dev, prog, lp, params, records)
+    print(f"fleet phase: {time.perf_counter() - t_phase} s")
     t_phase = time.perf_counter()
     drive_train_deploy(dev, records)
     print(f"train -> deploy phase: {time.perf_counter() - t_phase} s")

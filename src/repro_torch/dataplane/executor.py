@@ -31,8 +31,9 @@ path of ``dataplane.multitenant.SwitchScheduler``.
 Streaming (:func:`execute_stream`) re-chunks any packet iterator into
 fixed-size blocks so millions of packets run at constant device memory.  The
 stream path is instrumented through ``repro_torch.obs`` (packets/chunk
-counters, chunk-latency histogram, and ``compile:``/``execute:`` spans) —
-all no-ops unless the global observability switch is on.
+counters, chunk-latency histogram, ``compile:``/``execute:`` spans, and the
+``roofline.*`` gauges of the dispatch's bound) — all no-ops unless the
+global observability switch is on.
 
 Invariants:
 
@@ -799,6 +800,27 @@ def _rechunk(chunks: Iterable[np.ndarray], chunk_size: int) -> Iterator[np.ndarr
         yield np.concatenate(buf, axis=0) if len(buf) > 1 else buf[0]
 
 
+def _probe_roofline(lowered, backend, chunk, scan_hops):
+    """Fail-soft ``roofline.dataplane`` probe of the dispatch — obs-only
+    bookkeeping, never allowed to affect an execution path."""
+    try:
+        from repro_torch.roofline import dataplane as _roofline_dp
+
+        return _roofline_dp.probe_stream(lowered, backend=backend, chunk=chunk, scan_hops=scan_hops)
+    except Exception:  # noqa: BLE001 - observation must not break runs
+        return None
+
+
+def _record_roofline(roofline, measured_pps):
+    """Fail-soft gauge publication for a probe (see ``_probe_roofline``)."""
+    try:
+        from repro_torch.roofline import dataplane as _roofline_dp
+
+        _roofline_dp.record(roofline, measured_pps=measured_pps)
+    except Exception:  # noqa: BLE001 - observation must not break runs
+        pass
+
+
 def execute_stream(
     lowered: LoweredProgram,
     chunks: Iterable[np.ndarray],
@@ -825,6 +847,7 @@ def execute_stream(
     n_chunks = 0
     seconds = 0.0
     warmup = 0.0
+    roofline = None
     with obs.span(
         "stream:execute_stream", cat="stream",
         backend=backend, chunk_size=chunk_size,
@@ -842,6 +865,8 @@ def execute_stream(
                     if device.type == "cuda":
                         torch.cuda.synchronize(device)
                     warmup = time.perf_counter() - w0
+                if obs.enabled():  # cost the dispatch, once
+                    roofline = _probe_roofline(lowered, backend, chunk_size, scan_hops)
             with obs.span("execute:stream_chunk", cat="execute", packets=n):
                 t0 = time.perf_counter()
                 res = _run_chunk(lowered, dev, backend, scan_hops).cpu().numpy()
@@ -859,6 +884,8 @@ def execute_stream(
                 m.histogram("dataplane.chunk_seconds").observe(dt)
     if obs.enabled() and seconds > 0:
         obs.registry().gauge("dataplane.stream_pps").set(total / seconds)
+        if roofline is not None:
+            _record_roofline(roofline, total / seconds)
     return StreamResult(
         packets=total,
         chunks=n_chunks,

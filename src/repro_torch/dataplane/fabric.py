@@ -61,7 +61,7 @@ from repro_torch.dataplane.lowering import (
     lower_program,
     stack_hops,
 )
-from repro_torch.dataplane.plan import ExecutionPlan, refuse_fleet
+from repro_torch.dataplane.plan import ExecutionPlan
 from repro_torch.device import resolve_device
 
 MODES = ("recirculate", "multi_hop")
@@ -178,8 +178,8 @@ class SwitchFabric:
         interpreter/oracle).
 
         ``plan`` (an :class:`~repro_torch.dataplane.plan.ExecutionPlan`)
-        overrides the individual keywords; its ``interpret`` is ignored, and
-        a ``fleet`` raises ``NotImplementedError`` (not ported yet).
+        overrides the individual keywords; its ``interpret``, ``fleet`` and
+        ``devices`` are ignored, as in the reference.
         ``scan_hops``: True/None run the chain over the stacked hop tables
         (None falls back to unrolled only when the hops refuse to stack);
         False forces the unrolled per-hop loop.  The packed backend always
@@ -189,7 +189,6 @@ class SwitchFabric:
         each chunk's host-to-device copy are outside the clock; a chunk is
         timed to its output bits on the host.
         """
-        refuse_fleet(plan)
         if plan is not None:
             backend = plan.backend_str
             if plan.chunk_size is not None:

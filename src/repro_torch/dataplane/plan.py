@@ -2,11 +2,13 @@
 reference's ``dataplane/plan.py``).
 
 :class:`ExecutionPlan` gathers the *how* of a run into one frozen value and
-:func:`run` dispatches the *what* (a program or a fabric) with it::
+:func:`run` dispatches the *what* (a program, a fabric, a scheduler) with
+it::
 
     from repro_torch.dataplane.plan import Backend, ExecutionPlan, run
 
-    out = run(program, packets, plan=ExecutionPlan(backend=Backend.PACKED))
+    result = run(program, stream,
+                 plan=ExecutionPlan(backend=Backend.PACKED, fleet=64))
 
 Dispatch is by program/stream type:
 
@@ -14,6 +16,9 @@ Dispatch is by program/stream type:
   ``executor.execute`` (returns the output bits);
 * ... + a chunk iterator -> ``executor.execute_stream`` (returns
   :class:`~repro_torch.dataplane.executor.StreamResult`);
+* ... + ``plan.fleet`` set -> ``fleet.execute_fleet`` over N streams or
+  N replicas of one (returns
+  :class:`~repro_torch.dataplane.fleet.FleetRunResult`);
 * ``SwitchScheduler`` + a ``(tenant_ids, bits)`` mixed stream (or an
   iterator of such chunks) -> ``SwitchScheduler.run`` (returns
   :class:`~repro_torch.dataplane.multitenant.SchedulerRunResult`, outputs
@@ -23,9 +28,8 @@ Dispatch is by program/stream type:
   (``core.interpreter.run_program``) — the correctness witness, only
   reachable through :func:`run` (the executors never accept it).
 
-Not ported yet, and raising ``NotImplementedError``: ``plan.fleet``
-(ROADMAP Queue 1 item 8), for a program or a fabric alike.  The
-reference's ``devices`` (a fleet's sharding) comes with that item.
+As in the reference, a scheduler and a fabric run as they do without a
+fleet: ``plan.fleet`` and ``plan.devices`` only shape a program's run.
 
 The keyword surfaces stay: every ``backend=`` string the executors accept
 still works, and ``executor.resolve_backend`` takes :class:`Backend`
@@ -87,8 +91,11 @@ class ExecutionPlan:
                     per-hop dispatch, None -> stacked whenever the hops
                     stack (same row/register shapes; they always do for
                     slices of one program).
-    ``fleet``       batch this many independent streams (not ported yet:
-                    any run with it set raises, ROADMAP Queue 1 item 8).
+    ``fleet``       batch this many independent streams through one
+                    dispatch (None -> single-stream paths).
+    ``devices``     the reference shards a fleet's streams over this many
+                    devices; the port runs on one GPU, so None or 1 (a
+                    larger value is refused when a fleet runs).
     ``collect``     keep outputs (streaming paths default to stats-only).
     ``merged``      multi-tenant merged-table layout ("interleave" packs
                     tenants' elements onto shared stages, "concat" stacks
@@ -101,6 +108,7 @@ class ExecutionPlan:
     interpret: bool | None = None
     scan_hops: bool | None = None
     fleet: int | None = None
+    devices: int | None = None
     collect: bool = False
     merged: str | None = None
 
@@ -110,6 +118,8 @@ class ExecutionPlan:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
         if self.fleet is not None and self.fleet < 1:
             raise ValueError(f"fleet must be >= 1, got {self.fleet}")
+        if self.devices is not None and self.devices < 1:
+            raise ValueError(f"devices must be >= 1, got {self.devices}")
         if self.merged is not None and self.merged not in (
             "interleave", "concat"
         ):
@@ -124,22 +134,14 @@ class ExecutionPlan:
         return self.backend.value
 
 
-_FLEET = "fleet plans are not ported yet (ROADMAP Queue 1 item 8)"
-
-
-def refuse_fleet(plan: ExecutionPlan | None) -> None:
-    """Raise ``NotImplementedError`` when ``plan`` asks for a fleet."""
-    if plan is not None and plan.fleet is not None:
-        raise NotImplementedError(_FLEET)
-
-
 def run(program, stream, *, plan: ExecutionPlan | None = None, device="cuda"):
     """Execute ``stream`` through ``program`` according to ``plan``, on
     ``device``.
 
     See the module docstring for the dispatch table.  ``stream`` may be a
-    ``(batch, input_bits)`` {0,1} array, an iterator of such chunks, or a
-    ``(tenant_ids, bits)`` mixed stream (for a scheduler).
+    ``(batch, input_bits)`` {0,1} array, an iterator of such chunks, a
+    ``(tenant_ids, bits)`` mixed stream (for a scheduler), or a sequence of
+    per-stream chunk iterators (for a fleet plan).
     """
     import numpy as np
 
@@ -147,11 +149,11 @@ def run(program, stream, *, plan: ExecutionPlan | None = None, device="cuda"):
     from repro_torch.core.pipeline import PipelineProgram
     from repro_torch.dataplane import executor as _executor
     from repro_torch.dataplane import fabric as _fabric
+    from repro_torch.dataplane import fleet as _fleet
     from repro_torch.dataplane import multitenant as _multitenant
     from repro_torch.dataplane.lowering import LoweredProgram, lower_program
 
     plan = plan or ExecutionPlan()
-    refuse_fleet(plan)
 
     if isinstance(program, _multitenant.SwitchScheduler):
         if plan.backend is Backend.INTERPRETER:
@@ -189,6 +191,9 @@ def run(program, stream, *, plan: ExecutionPlan | None = None, device="cuda"):
         if isinstance(program, LoweredProgram)
         else lower_program(program)
     )
+
+    if plan.fleet is not None:
+        return _fleet.execute_fleet(lowered, stream, plan=plan, device=device)
 
     if hasattr(stream, "ndim") and getattr(stream, "ndim", 0) == 2:
         return _executor.execute(

@@ -1,6 +1,7 @@
 """``repro_torch.obs`` — runtime observability for the dataplane hot path.
 
-One global switch and two switched capabilities:
+One global switch and two switched capabilities, plus their exporters
+(``obs.export``: metrics JSONL, Prometheus text, Chrome trace):
 
 * a **metrics registry** (``obs.metrics``): counters, gauges, and
   streaming histograms with p50/p95/p99 — packets/s, chunk latency,
@@ -33,6 +34,9 @@ Invariants:
 """
 from __future__ import annotations
 
+import os
+
+from repro_torch.obs import export as _export
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
 from repro_torch.obs.tracing import Span, SpanRecord, Tracer
 
@@ -46,12 +50,16 @@ __all__ = [
     "Tracer",
     "disable",
     "enable",
+    "enable_from_env",
     "enabled",
+    "export_all",
     "registry",
     "reset",
     "span",
     "tracer",
 ]
+
+OBS_ENV = "REPRO_OBS"           # truthy value enables at enable_from_env()
 
 _enabled = False
 _registry = MetricsRegistry()
@@ -99,6 +107,18 @@ def reset() -> None:
     _tracer.reset()
 
 
+def enable_from_env() -> bool:
+    """Enable iff ``$REPRO_OBS`` is set truthy; returns the switch state.
+
+    The hook harnesses use so a job can opt a whole run into tracing
+    without code changes.
+    """
+    val = os.environ.get(OBS_ENV, "").strip().lower()
+    if val not in ("", "0", "false", "no", "off"):
+        enable()
+    return _enabled
+
+
 def registry() -> MetricsRegistry:
     """The process-wide metrics registry."""
     return _registry
@@ -114,3 +134,9 @@ def span(name: str, cat: str = "span", **args):
     if not _enabled:
         return _NULL_SPAN
     return _tracer.span(name, cat, **args)
+
+
+def export_all(out_dir: str, *, prefix: str = "obs") -> dict[str, str]:
+    """Write metrics JSONL + Prometheus text + chrome trace to ``out_dir``
+    (see ``repro_torch.obs.export.export_all``); returns the artifact paths."""
+    return _export.export_all(out_dir, _registry, _tracer, prefix=prefix)

@@ -1,0 +1,109 @@
+"""Compulsory bytes and operations of each of the port's CUDA kernels, as
+functions of the shapes (and tables) of one call.
+
+Bytes count each input read once and each output written once, whatever a
+kernel reads again; operations count what the call's inputs need, at the
+peak rate of their kind (``hw``).  :meth:`Cost.bound_ms` is the least time
+the card could take: the larger of bytes over the memory rate and
+operations over their rate.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.roofline import hw
+
+
+def words(bits: int) -> int:
+    """uint32 words that hold ``bits`` packed bits."""
+    return -(-bits // 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cost:
+    """Bytes and operations of one call; ``rate`` is the peak of its
+    operations' kind.  Costs of one rate add, and scale by a count of
+    calls."""
+
+    bytes: int
+    ops: int
+    rate: float = hw.INT32_OPS_PER_S
+
+    def __add__(self, other: "Cost") -> "Cost":
+        if other.rate != self.rate:
+            raise ValueError("costs of operations at different rates do not add")
+        return Cost(self.bytes + other.bytes, self.ops + other.ops, self.rate)
+
+    def __mul__(self, calls: int) -> "Cost":
+        return Cost(self.bytes * calls, self.ops * calls, self.rate)
+
+    __rmul__ = __mul__
+
+    def bound_ms(self) -> tuple[float, str]:
+        """Least milliseconds on the card and what sets them: ``"bytes"``
+        or ``"operations"``."""
+        t_bytes, t_ops = self.bytes / hw.HBM_BYTES_PER_S, self.ops / self.rate
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def total(costs) -> Cost:
+    """The sum of one or more costs of one rate."""
+    costs = iter(costs)
+    out = next(costs)
+    for c in costs:
+        out = out + c
+    return out
+
+
+def optable_run(num_regs: int, batch: int, num_ops: int, records_bytes: int) -> Cost:
+    """One program over ``batch`` packets, whatever the route: the register
+    file read and written once and the plan's records read once; an ALU
+    operation, the mask and the write-back per true row."""
+    return Cost(2 * num_regs * batch * 4 + records_bytes, 3 * num_ops * batch)
+
+
+def bitpack(rows: int, cols: int, itemsize: int = 4) -> Cost:
+    """``bitpack`` / ``pack_bits_words``: (rows, cols) elements of
+    ``itemsize`` bytes read, (rows, words(cols)) uint32 written; one
+    compare per element."""
+    return Cost(rows * cols * itemsize + rows * words(cols) * 4, rows * cols)
+
+
+def packed_layer(batch: int, n_words: int, n_out: int) -> Cost:
+    """``packed_layer``: (batch, n_words) words, weights and masks
+    (n_out, n_words), thresholds (n_out,) read; (batch, n_out) bits
+    written.  Per output: xor, not, and, popcount and add per word, and the
+    compare."""
+    return Cost((batch * n_words + 2 * n_out * n_words + n_out + batch * n_out) * 4,
+                batch * n_out * (5 * n_words + 1))
+
+
+def packed_layer_popcounts(batch: int, n_words: int, n_out: int) -> int:
+    """The population counts among :func:`packed_layer`'s operations."""
+    return batch * n_out * n_words
+
+
+def packed_layer_routed(batch: int, n_words: int, tenants: int, n_out: int) -> Cost:
+    """``packed_layer_routed``: as :func:`packed_layer`, plus the (batch,)
+    tenant ids, over (tenants, n_out, n_words) tables."""
+    return Cost((batch * n_words + batch + batch * n_out + 2 * tenants * n_out * n_words
+                 + tenants * n_out) * 4,
+                batch * n_out * (5 * n_words + 1))
+
+
+def bnn_matmul_packed(m: int, n: int, kw: int) -> Cost:
+    """The ±1 GEMM on packed words: (m, kw) and (n, kw) words read, (m, n)
+    int32 written; one population count per word pair, its limit."""
+    return Cost((m * kw + n * kw + m * n) * 4, m * n * kw, hw.POPC_PER_S)
+
+
+def bnn_matmul_mxu(m: int, k: int, n: int) -> Cost:
+    """The ±1 GEMM on the tensor cores: (m, k) and (k, n) bf16 read, (m, n)
+    float32 written; 2mnk bf16 operations."""
+    return Cost((m * k + k * n) * 2 + m * n * 4, 2 * m * n * k, hw.BF16_TENSOR_FLOPS)
+
+
+def flash_attention(bh: int, s: int, d: int) -> Cost:
+    """Causal attention over (bh, s, d) bf16: q, k, v read and o written;
+    the causal half of the 4 s^2 d operations of both products."""
+    return Cost(4 * bh * s * d * 2, 2 * bh * s * s * d, hw.BF16_TENSOR_FLOPS)

@@ -1,2 +1,2 @@
-"""Serving engines (the reference's ``serving/``): the LM ``Engine`` so far;
-``FleetEngine`` waits for ROADMAP Queue 1 item 9."""
+"""Serving engines (the reference's ``serving/``): the LM ``Engine`` and the
+dataplane ``FleetEngine`` with its ``FleetHealth`` snapshot."""

@@ -274,7 +274,9 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.dataplane.plan, repro_torch.dataplane.telemetry, repro_torch.dataplane.fabric, "
         "repro_torch.obs.windows, repro_torch.obs.slo, repro_torch.tree, repro_torch.optim.adamw, "
         "repro_torch.train.checkpoint, repro_torch.train.bnn_trainer, "
-        "repro_torch.dataplane.multitenant, repro_torch.dataplane.pcap\n"
+        "repro_torch.dataplane.multitenant, repro_torch.dataplane.pcap, "
+        "repro_torch.dataplane.fleet, repro_torch.dataplane.factory, repro_torch.obs.export, "
+        "repro_torch.roofline.hw, repro_torch.roofline.kernels, repro_torch.roofline.dataplane\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad); sys.exit(1 if bad else 0)"

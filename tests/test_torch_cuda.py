@@ -378,6 +378,77 @@ def test_execute_on_cuda_matches_cpu(cuda, backend, scan_hops):
     np.testing.assert_array_equal(gpu, cpu)
 
 
+
+def _ragged_streams(count, seed=0):
+    """Distinct streams (seeded by index) of unequal lengths, one empty."""
+    lengths = [(37 * i) % 301 for i in range(count)]
+    return [traffic.generate("ddos_burst", n, 32, seed=seed + i) for i, n in enumerate(lengths)]
+
+
+@pytest.mark.parametrize("backend,scan_hops", [("jnp", False), ("packed", False), ("packed", True)])
+def test_execute_fleet_on_cuda_matches_cpu(cuda, backend, scan_hops):
+    """Ragged distinct streams, some exhausted blocks before the others:
+    every stream, its count and the bit counts as on the CPU."""
+    from repro_torch.dataplane.fleet import execute_fleet
+    from repro_torch.dataplane.plan import ExecutionPlan
+
+    lp = _lowered((32, 64, 32), seed=7)
+    streams = _ragged_streams(70)
+    plan = ExecutionPlan(backend=backend, scan_hops=scan_hops, chunk_size=16, collect=True)
+    gpu = execute_fleet(lp, streams, plan=plan)
+    cpu = execute_fleet(lp, streams, plan=plan, device="cpu")
+    assert (gpu.packets, gpu.chunks) == (cpu.packets, cpu.chunks)
+    np.testing.assert_array_equal(gpu.per_stream_packets, cpu.per_stream_packets)
+    np.testing.assert_array_equal(gpu.bit_counts, cpu.bit_counts)
+    for a, b in zip(gpu.outputs, cpu.outputs):
+        np.testing.assert_array_equal(a, b)
+    assert gpu.warmup_seconds > 0 and gpu.seconds > 0
+
+
+def test_fleet_engine_on_cuda_matches_execute_fleet(cuda):
+    import threading
+
+    from repro_torch.dataplane.fleet import execute_fleet
+    from repro_torch.dataplane.plan import ExecutionPlan
+    from repro_torch.serving.engine import FleetEngine
+
+    lp = _lowered((32, 64, 32), seed=7)
+    streams = _ragged_streams(70, seed=3)
+    plan = ExecutionPlan(backend="packed", chunk_size=16, collect=True)
+    want = execute_fleet(lp, streams, plan=plan)
+    got = FleetEngine(lp, plan=plan).serve(streams, collect=True)
+    assert (got.packets, got.chunks) == (want.packets, want.chunks)
+    np.testing.assert_array_equal(got.per_stream_packets, want.per_stream_packets)
+    for a, b in zip(got.outputs, want.outputs):
+        np.testing.assert_array_equal(a, b)
+    assert not [t for t in threading.enumerate() if t.name == "fleet-ingest"]
+
+
+def test_fleet_engine_dispatch_failure_reraises_and_joins_its_producer(cuda):
+    """A dispatch that raises mid-serve is re-raised, and the ingest thread,
+    blocked on the full queue, is stopped and joined."""
+    import threading
+
+    from repro_torch.dataplane.plan import ExecutionPlan
+    from repro_torch.serving.engine import FleetEngine
+
+    lp = _lowered((32, 64, 32), seed=7)
+    eng = FleetEngine(lp, plan=ExecutionPlan(backend="packed", chunk_size=1), queue_depth=1)
+    run, calls = eng.fn, []
+
+    def failing(blocks):
+        calls.append(1)
+        if len(calls) > 3:
+            raise RuntimeError("dispatch failed")
+        return run(blocks)
+
+    eng.fn = failing
+    with pytest.raises(RuntimeError, match="dispatch failed"):
+        eng.serve(_ragged_streams(4, seed=5)[1:])
+    assert len(calls) == 4
+    assert not [t for t in threading.enumerate() if t.name == "fleet-ingest"]
+
+
 # ---------------------------------------------------------------------------
 # The LM slice: packed and tensor-core binary GEMMs, flash attention, and the
 # model they run in.  The GEMMs are exact; flash is held to 2e-3 in float32

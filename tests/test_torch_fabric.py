@@ -37,6 +37,7 @@ from repro.core import compiler as jcompiler
 from repro.core import pipeline as jpipe
 from repro.core import throughput as jthr
 from repro.dataplane import fabric as jfab
+from repro.dataplane import plan as jplan
 from repro.dataplane import telemetry as jtel
 from repro.obs import slo as jslo
 from repro.obs import windows as jwin
@@ -278,11 +279,18 @@ def test_plan_run_gives_the_direct_calls_answers():
         assert fres.scanned == (scan is None)
     with pytest.raises(ValueError, match="fabric form"):
         tplan.run(tf, x, plan=P(backend="interpreter"), device="cpu")
-    for fleet_of in (lp, tprog, tf):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tplan.run(fleet_of, x, plan=P(fleet=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tf.run(x, plan=P(fleet=1), device="cpu")
+    # A fleet plan replicates a program's packets to every stream, as the
+    # reference's does; a fabric ignores it, as the reference's does.
+    jlp = jprog.lower()
+    for fleet_of in (lp, tprog):
+        fres = tplan.run(fleet_of, x, plan=P(fleet=2, chunk_size=16, collect=True), device="cpu")
+        jres = jplan.run(jlp, x, plan=jplan.ExecutionPlan(fleet=2, chunk_size=16, collect=True))
+        assert (fres.streams, fres.packets, fres.chunks) == (jres.streams, jres.packets, jres.chunks) == (2, 80, 3)
+        for got, ref in zip(fres.outputs, jres.outputs):
+            np.testing.assert_array_equal(got, ref)
+            np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tplan.run(tf, x, plan=P(fleet=2), device="cpu").outputs, want)
+    np.testing.assert_array_equal(tf.run(x, plan=P(fleet=1, devices=3), device="cpu").outputs, want)
     with pytest.raises(TypeError, match="SwitchScheduler"):
         tplan.run(object(), x, device="cpu")
 
@@ -300,13 +308,12 @@ def test_backend_members_resolve_as_their_strings():
             B.coerce(bad)
         with pytest.raises(ValueError, match="unknown backend"):
             texec.resolve_backend(bad)
-    for bad in (dict(fleet=0), dict(chunk_size=0)):
+    for bad in (dict(fleet=0), dict(chunk_size=0), dict(devices=0)):
         with pytest.raises(ValueError):
             tplan.ExecutionPlan(**bad)
-    # The reference's fleet sharding comes with the fleet; until then a plan
-    # has no such option.  The scheduler's merged-table layout is validated.
-    with pytest.raises(TypeError):
-        tplan.ExecutionPlan(devices=4)
+    # ``devices`` is validated as in the reference (a fleet refuses more than
+    # one GPU when it runs); the scheduler's merged-table layout too.
+    assert tplan.ExecutionPlan(devices=4).devices == jplan.ExecutionPlan(devices=4).devices == 4
     assert tplan.ExecutionPlan(merged="concat").merged == "concat"
     with pytest.raises(ValueError, match="merged"):
         tplan.ExecutionPlan(merged="stacked")

@@ -560,7 +560,7 @@ def test_time_sliced_turns_reuse_cached_tables(tenants3):
     assert misses == 0 and hits == 2 * (turns + len(ts.tenants))
 
 
-def test_plan_runs_a_scheduler_and_still_refuses_fleets(tenants3):
+def test_plan_runs_a_scheduler_and_ignores_fleets(tenants3):
     ts, _ = _schedulers(tenants3)
     pair = ttr.mixed_tenant_generate(_specs(ttr, SPECS), 400, seed=6)
     want = ts.run(pair, mode="merged", merged="concat", device="cpu")
@@ -572,8 +572,10 @@ def test_plan_runs_a_scheduler_and_still_refuses_fleets(tenants3):
             np.testing.assert_array_equal(got.outputs_for(t), want.outputs_for(t))
     with pytest.raises(ValueError, match="single programs"):
         tplan.run(ts, pair, plan=tplan.ExecutionPlan(backend="interpreter"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tplan.run(ts, pair, plan=tplan.ExecutionPlan(fleet=2), device="cpu")
+    # As the reference's, a scheduler runs as it does without a fleet.
+    got = tplan.run(ts, pair, plan=tplan.ExecutionPlan(fleet=2, devices=2, merged="concat"), device="cpu")
+    for t in range(3):
+        np.testing.assert_array_equal(got.outputs_for(t), want.outputs_for(t))
     with pytest.raises(ValueError, match="merged"):
         tplan.ExecutionPlan(merged="stacked")
 
