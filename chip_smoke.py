@@ -130,10 +130,35 @@ What it does, in order:
       ``attn_impl="pallas_flash"`` (one ``flash_attention`` launch per
       layer, every one on the tma route), and holds a 2-layer float32
       copy's flash logits against its plain-attention logits;
-10. prints one JSON line of per-kernel numbers, then the status line.  The
+10. the MoE and MLA models (the phi3 parameters freed first; weights from a
+   fixed seed, bf16, ``bnn_packed`` on ``ffn``, ``attn_proj`` and ``moe``):
+   a. holds ``bnn_matmul_packed_experts`` bit for bit against its plain
+      version at qwen3-moe-30b-a3b's and deepseek-v2-236b's gate and down
+      shapes at capacities of 1, 10 and 160 slots, at ragged K and odd E,
+      each case asserting its route; times one qwen3 decode layer's three
+      launches as a replayed CUDA graph over 4 layers' weights, in turns
+      with the tiled route and with ``torch.bmm`` of pre-signed bf16
+      operands, beside the plain version, and one scoring layer (C = 160);
+   b. qwen3-moe-30b-a3b at its published config (48 layers, 128 experts
+      top-8): the ``Engine`` serves 8 requests as in 9c, each prefill and
+      decode step making per layer 4 ``bnn_matmul_packed``, 3
+      ``bnn_matmul_packed_experts`` and 7 bf16 ``bitpack`` launches (every
+      decode-step launch on the stream route), then ``forward`` scores 2048
+      tokens with flash (D = 128, tma; every expert launch tiled);
+   c. deepseek-v2-236b at published widths and depth (60 layers, MLA, 160
+      experts top-6 and 2 shared): the ``Engine`` serves 4 requests, per
+      layer 3 ``bnn_matmul_packed`` (the shared experts; MLA projections
+      are never packed), 3 expert launches and 6 ``bitpack``;
+   d. minicpm3-4b, stablelm-3b and chatglm3-6b at published widths and 4
+      layers: the ``Engine`` serves 4 requests each, launches counted;
+      stablelm's ``forward`` with flash at D = 80 takes the tma route;
+   e. ``repro_torch.launch.serve.main`` at ``--reduced`` on the card for
+      each of the six ported architectures;
+11. prints one JSON line of per-kernel numbers, then the status line.  The
    packet kernels' ``launches`` sum their ``launches_by_path`` (the fleet
    phase's runs under ``fleet``), and ``launches_by_route`` splits the same
-   launches by route.  Every bound is ``repro_torch.roofline``'s: the
+   launches by route; the expert GEMM's ``launches`` are qwen3's serving
+   run's, its ``launches_by_path`` each MoE run's.  Every bound is ``repro_torch.roofline``'s: the
    kernels' bytes and operations (``roofline.kernels``) over the H100 peaks
    (``roofline.hw``).
 
@@ -181,6 +206,9 @@ from repro_torch.configs.base import QuantConfig, get_config  # noqa: E402
 from repro_torch.kernels import bnn_matmul, bnn_matmul_mxu, flash_attention, ref  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
+from repro_torch.configs.archs import ASSIGNED_ARCHS  # noqa: E402
+from repro_torch.launch import serve as serve_launch  # noqa: E402
+from repro_torch.layers.moe import capacity_of  # noqa: E402
 from repro_torch.train.bnn_trainer import BnnTrainConfig, BnnTrainer  # noqa: E402
 
 PACKETS = 1 << 20
@@ -1372,6 +1400,7 @@ COUNTED = {
     "packed_layer": packed_layer.packed_layer,
     "packed_layer_routed": packed_layer.packed_layer_routed,
     "bnn_matmul_packed": bnn_matmul.bnn_matmul_packed,
+    "bnn_matmul_packed_experts": bnn_matmul.bnn_matmul_packed_experts,
     "bnn_matmul_mxu": bnn_matmul_mxu.bnn_matmul_mxu,
     "flash_attention": flash_attention.flash_attention,
 }
@@ -1639,12 +1668,43 @@ def drive_binary_matmul(dev, cfg, gen) -> dict:
     return launches
 
 
+def packed_launches(cfg) -> tuple[int, int]:
+    """(``bnn_matmul_packed``, ``bnn_matmul_packed_experts``) launches one
+    layer makes in a prefill or a decode step, each after one ``bitpack``:
+    the packed GQA projections (q, k, v, o; MLA's are never packed), the
+    packed FFN (SwiGLU 3, GELU 2) or an MoE layer's shared SwiGLU, and an
+    MoE layer's three expert contractions."""
+    targets = cfg.quant.targets if cfg.quant.packed else ()
+    proj = 4 if cfg.attention == "gqa" and "attn_proj" in targets else 0
+    experts = 0
+    if cfg.family == "moe":
+        experts = 3 if "moe" in targets else 0
+        proj += 3 if cfg.moe.num_shared and "ffn" in targets else 0
+    elif "ffn" in targets:
+        proj += 3 if cfg.act == "swiglu" else 2
+    return proj, experts
+
+
+def expected_routes(per_layer: int, cfg, decode_steps: int, sizes: list[int]) -> dict:
+    """A kernel's launches by route over a serving run: ``per_layer``
+    launches a layer in each decode step (M or C of at most STREAM_MAX_M:
+    ``stream``) and each prefill of ``sizes`` rows (``stream`` up to
+    STREAM_MAX_M, else ``tiled``); every K here is a multiple of 128 bits."""
+    short = sum(m <= bnn_matmul.STREAM_MAX_M for m in sizes)
+    per_call = per_layer * cfg.num_layers
+    return {"stream": per_call * (decode_steps + short), "tiled": per_call * (len(sizes) - short)}
+
+
 @torch.inference_mode()
-def drive_serving(dev, cfg, params) -> dict:
-    """The slice's main path: the Engine serves LM_REQUESTS requests."""
+def drive_serving(dev, cfg, params, requests: int = LM_REQUESTS, label: str = LM_ARCH) -> dict:
+    """The ``Engine`` serves ``requests`` prompts of 16 to 128 tokens, 32 new
+    tokens each, at DECODE_M slots.  Every packed projection and expert
+    contraction launches its kernel after one ``bitpack`` (bf16 input, vec
+    route), exactly ``packed_launches`` a layer per call; every decode-step
+    launch takes the stream route, a prefill's the route its rows pick."""
     rng = np.random.default_rng(SEED)
     eng = Engine(cfg, params, max_batch=DECODE_M, max_len=256, device=dev)
-    lengths = [int(rng.integers(16, 129)) for _ in range(LM_REQUESTS)]
+    lengths = [int(rng.integers(16, 129)) for _ in range(requests)]
     for i, s in enumerate(lengths):
         prompt = rng.integers(0, cfg.vocab_size, s).astype(np.int32)
         eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=LM_NEW_TOKENS))
@@ -1654,38 +1714,77 @@ def drive_serving(dev, cfg, params) -> dict:
     done = eng.run()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    if sorted(r.rid for r in done) != list(range(LM_REQUESTS)):
-        raise AssertionError(f"served {sorted(r.rid for r in done)} of {LM_REQUESTS} requests")
+    if sorted(r.rid for r in done) != list(range(requests)):
+        raise AssertionError(f"{label}: served {sorted(r.rid for r in done)} of {requests} requests")
     for r in done:
         if len(r.output) != LM_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"request {r.rid}: {len(r.output)} tokens, {r.output[:8]}...")
-    calls = LM_REQUESTS + eng.decode_steps  # prefills + batched decode steps
-    per_call = 7 * cfg.num_layers
-    for name in ("bnn_matmul_packed", "bitpack"):
-        if launches.get(name, 0) != per_call * calls:
-            raise AssertionError(f"{name} launched {launches.get(name, 0)} times, expected "
-                                 f"{per_call} per call x {calls} calls: {launches}")
-    # Every decode step (M = DECODE_M) and every prefill of at most
-    # STREAM_MAX_M tokens takes the stream route; longer prefills the tiled one.
-    short = sum(s <= bnn_matmul.STREAM_MAX_M for s in lengths)
-    by_route = dict(bnn_matmul.bnn_matmul_packed.launches_by_route)
-    want = {"stream": per_call * (eng.decode_steps + short), "tiled": per_call * (LM_REQUESTS - short)}
-    if by_route != want:
-        raise AssertionError(f"bnn_matmul_packed launches by route {by_route}, expected {want}")
+            raise AssertionError(f"{label} request {r.rid}: {len(r.output)} tokens, {r.output[:8]}...")
+    calls = requests + eng.decode_steps  # prefills + batched decode steps
+    proj, experts = packed_launches(cfg)
+    per_call = {"bnn_matmul_packed": proj, "bnn_matmul_packed_experts": experts, "bitpack": proj + experts}
+    want = {name: n * cfg.num_layers * calls for name, n in per_call.items() if n}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want} "
+                             f"({per_call} a layer x {cfg.num_layers} layers x {calls} calls)")
+    by_route = {}
+    if proj:
+        by_route["bnn_matmul_packed"] = expected_routes(proj, cfg, eng.decode_steps, lengths)
+    if experts:
+        capacities = [capacity_of(s, cfg) for s in lengths]
+        if capacity_of(DECODE_M, cfg) > bnn_matmul.STREAM_MAX_M:
+            raise AssertionError(f"{label}: a decode step's capacity is past the stream route")
+        by_route["bnn_matmul_packed_experts"] = expected_routes(experts, cfg, eng.decode_steps, capacities)
+    for name, want_routes in by_route.items():
+        got = dict(COUNTED[name].launches_by_route)
+        if got != want_routes:
+            raise AssertionError(f"{label}: {name} launches by route {got}, expected {want_routes}")
     # Every bitpack launch, decode steps included, takes the bf16 activation
     # as it comes (no cast to float32) on the vec route.
     pack = bitpack.bitpack
-    total = per_call * calls
+    total = want.get("bitpack", 0)
     if pack.launches_by_dtype["bfloat16"] != total or pack.launches_by_route["vec"] != total:
-        raise AssertionError(f"bitpack launches by type {pack.launches_by_dtype}, by route "
+        raise AssertionError(f"{label}: bitpack launches by type {pack.launches_by_dtype}, by route "
                              f"{pack.launches_by_route}: expected all {total} bf16 on the vec route")
-    print(f"serving path ({LM_ARCH}, {cfg.num_layers} layers, bf16, bnn_packed): "
-          f"{LM_REQUESTS} requests, wall {wall} s; prefill {eng.prefill_seconds} s for "
-          f"{LM_REQUESTS} prompts; decode {eng.decode_seconds} s for {eng.decode_steps} steps "
-          f"({eng.decode_seconds / eng.decode_steps * 1e3} ms/step), {eng.decode_tokens} tokens "
-          f"-> {eng.decode_tokens / eng.decode_seconds} decode tokens/s; launches {launches}; "
-          f"bnn_matmul_packed by route {by_route}; bitpack by type {pack.launches_by_dtype}")
+    print(f"serving path ({label}, {cfg.num_layers} layers, {cfg.dtype}, {cfg.quant.mode} on "
+          f"{cfg.quant.targets}): {requests} requests of {lengths} tokens, wall {wall} s; prefill "
+          f"{eng.prefill_seconds} s for {requests} prompts; decode {eng.decode_seconds} s for "
+          f"{eng.decode_steps} steps ({eng.decode_seconds / eng.decode_steps * 1e3} ms/step), "
+          f"{eng.decode_tokens} tokens -> {eng.decode_tokens / eng.decode_seconds} decode tokens/s; "
+          f"launches {launches}; by route {by_route}; bitpack by type {pack.launches_by_dtype}")
     print(f"  sample: request 0 -> {done[0].output[:8]}...")
+    return launches
+
+
+@torch.inference_mode()
+def score(dev, cfg, params, gen, length: int = LM_SCORE_LEN, label: str = LM_ARCH) -> dict:
+    """``forward`` with the flash kernel (one launch a layer, every one on
+    the tma route) over one ``length``-token sequence: finite logits of the
+    right shape; every packed contraction takes the tiled route."""
+    flash_cfg = dataclasses.replace(cfg, attn_impl="pallas_flash")
+    tokens = torch.randint(0, cfg.vocab_size, (1, length), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, aux = models.forward(params, {"tokens": tokens}, flash_cfg)
+    finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    by_route = dict(flash_attention.flash_attention.launches_by_route)
+    if launches.get("flash_attention") != cfg.num_layers or by_route["tma"] != cfg.num_layers:
+        raise AssertionError(f"{label}: flash_attention launched {launches.get('flash_attention')} "
+                             f"times (by route {by_route}), expected one per layer "
+                             f"({cfg.num_layers}), all on the tma route")
+    proj, experts = packed_launches(cfg)
+    for name, n in (("bnn_matmul_packed", proj), ("bnn_matmul_packed_experts", experts)):
+        got = dict(COUNTED[name].launches_by_route)
+        want = {"stream": 0, "tiled": n * cfg.num_layers}
+        if got != want:
+            raise AssertionError(f"{label} scoring: {name} launches by route {got}, expected {want}")
+    if logits.shape != (1, length, cfg.vocab_size) or not finite:
+        raise AssertionError(f"{label}: scoring logits {tuple(logits.shape)}, finite={finite}")
+    print(f"scoring path ({label}, forward, pallas_flash at D={cfg.resolved_head_dim}, 1 x {length} "
+          f"tokens): {seconds} s, aux {float(aux)}, launches {launches}; flash_attention by route "
+          f"{by_route}")
     return launches
 
 
@@ -1693,31 +1792,177 @@ def drive_serving(dev, cfg, params) -> dict:
 def drive_scoring(dev, cfg, params, gen) -> dict:
     """``forward`` with the flash kernel over one LM_SCORE_LEN-token sequence,
     then a 2-layer float32 unquantized copy: flash logits vs plain attention."""
-    flash_cfg = dataclasses.replace(cfg, attn_impl="pallas_flash")
+    launches = score(dev, cfg, params, gen)
     tokens = torch.randint(0, cfg.vocab_size, (1, LM_SCORE_LEN), generator=gen, device=dev)
-    torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    logits, _ = models.forward(params, {"tokens": tokens}, flash_cfg)
-    finite = bool(torch.isfinite(logits).all())
-    seconds = time.perf_counter() - t0
-    launches = read_counts()
-    by_route = dict(flash_attention.flash_attention.launches_by_route)
-    if launches.get("flash_attention") != cfg.num_layers or by_route["tma"] != cfg.num_layers:
-        raise AssertionError(f"flash_attention launched {launches.get('flash_attention')} times "
-                             f"(by route {by_route}), expected one per layer ({cfg.num_layers}), "
-                             f"all on the tma route")
-    if logits.shape != (1, LM_SCORE_LEN, cfg.vocab_size) or not finite:
-        raise AssertionError(f"scoring logits {tuple(logits.shape)}, finite={finite}")
-    print(f"scoring path (forward, pallas_flash, 1 x {LM_SCORE_LEN} tokens): {seconds} s, "
-          f"launches {launches}; flash_attention by route {by_route}")
-
     small = dataclasses.replace(cfg, num_layers=2, dtype="float32", quant=QuantConfig())
     p2 = models.init_params(small, SEED + 1, device=dev)
     want, _ = models.forward(p2, {"tokens": tokens}, small)
     got, _ = models.forward(p2, {"tokens": tokens}, dataclasses.replace(small, attn_impl="pallas_flash"))
     close("2-layer float32 forward: flash logits vs plain attention", got, want, 2e-3)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The MoE and MLA models
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 60        # deepseek-v2's published depth (about 48 GB resident)
+SMALL_ARCHS = ("minicpm3-4b", "stablelm-3b", "chatglm3-6b")
+SMALL_LAYERS = 4       # their new code is per layer: depth would add only time
+SMALL_REQUESTS = 4
+MOE_QUANT = QuantConfig(mode="bnn_packed", targets=("ffn", "attn_proj", "moe"))
+EXPERT_C = (1, 10, 160)    # qwen3's capacity at a decode step of 4 slots, a 128-token prompt, 2048 tokens
+EXPERT_GRAPH_LAYERS = 4    # qwen3 layers' expert weights per graph: 302 MB, beyond the 50 MB L2
+
+
+def expert_shapes(cfg) -> list[tuple[int, int, int, int]]:
+    """(E, O, Kw, k_bits) of an MoE layer's gate, up and down launches."""
+    m = cfg.moe
+    d, f = cfg.d_model, m.expert_ffn_dim
+    return [(m.num_experts, f, d // 32, d)] * 2 + [(m.num_experts, d, f // 32, f)]
+
+
+def random_words(shape, gen, dev) -> torch.Tensor:
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32, generator=gen, device=dev)
+
+
+def check_bnn_matmul_packed_experts(dev, gen) -> dict:
+    """The batched packed expert GEMM bit for bit against its plain version:
+    qwen3-moe-30b-a3b's and deepseek-v2-236b's gate and down shapes at C of
+    1 (a decode step of 4 slots), 10 (a 128-token prompt) and 160 (qwen3's
+    2048-token scoring pass), a ragged K (not a multiple of 32) on each
+    route, and odd E; each case asserts its route.  Timed per qwen3 decode
+    layer (gate, up and down at C = 1) as the device time of a CUDA graph
+    over EXPERT_GRAPH_LAYERS layers' distinct weights, in turns with the
+    tiled route and with ``torch.bmm`` of pre-signed bf16 operands; the
+    plain version beside it; one scoring layer (C = 160, tiled) too."""
+    fn = bnn_matmul.bnn_matmul_packed_experts
+    err = 0
+    for arch in (MOE_ARCH, MLA_ARCH):
+        for e, o, kw, k in expert_shapes(get_config(arch))[1:]:  # gate (= up) and down
+            w = random_words((e, o, kw), gen, dev)
+            for c in EXPERT_C:
+                x = random_words((e, c, kw), gen, dev)
+                path = "stream" if c <= bnn_matmul.STREAM_MAX_M else "tiled"
+                err = max(err, same(f"bnn_matmul_packed_experts {arch} E={e} C={c} O={o} Kw={kw} ({path})",
+                                    routed(fn, path, lambda: fn(x, w, k_bits=k)),
+                                    ref.bnn_matmul_packed_experts_ref(x, w, k)))
+            del w
+    # Packed from floats, so the bits past K are zero in both operands.
+    for e, c, o, k, path in ((7, 10, 300, 1000, "stream"), (7, 10, 300, 3163, "tiled"),
+                             (5, 1, 129, 70, "tiled"), (1, 160, 64, 2048, "tiled")):
+        x = kops._pack_rows(torch.randn((e * c, k), generator=gen, device=dev)).view(e, c, -1)
+        w = kops._pack_rows(torch.randn((e * o, k), generator=gen, device=dev)).view(e, o, -1)
+        err = max(err, same(f"bnn_matmul_packed_experts E={e} C={c} O={o} K={k} ({path})",
+                            routed(fn, path, lambda: fn(x, w, k_bits=k)),
+                            ref.bnn_matmul_packed_experts_ref(x, w, k)))
+
+    cfg = get_config(MOE_ARCH)
+    shapes = expert_shapes(cfg)
+    layers = [[random_words((e, o, kw), gen, dev) for e, o, kw, _ in shapes] for _ in range(EXPERT_GRAPH_LAYERS)]
+    xs = [random_words((e, 1, kw), gen, dev) for e, _, kw, _ in shapes]
+    outs = [torch.empty((e, 1, o), dtype=torch.int32, device=dev) for e, o, _, _ in shapes]
+    for x, w in zip(xs, layers[0]):
+        if bnn_matmul.experts_route(x, w) != "stream":
+            raise AssertionError(f"decode expert shape {tuple(x.shape)} cannot take the stream route")
+
+    def expert_layers(path):
+        return lambda: [bnn_matmul._launch_experts(x, w, out, k, path) for layer in layers
+                        for x, w, out, (_, _, _, k) in zip(xs, layer, outs, shapes)]
+
+    signed_x = [ref.sign(torch.randn((e, 1, k), generator=gen, device=dev), torch.bfloat16)
+                for e, _, _, k in shapes]
+    signed_w = [[ref.sign(torch.randn((e, k, o), generator=gen, device=dev), torch.bfloat16)
+                 for e, o, _, k in shapes] for _ in range(EXPERT_GRAPH_LAYERS)]
+    library = lambda: [torch.bmm(x, w) for layer in signed_w for x, w in zip(signed_x, layer)]  # noqa: E731
+    t = graphs_in_turns({"stream": expert_layers("stream"), "tiled": expert_layers("tiled"),
+                         "torch.bmm": library})
+    per_layer = {name: v / EXPERT_GRAPH_LAYERS for name, v in t.items()}
+    del signed_w, signed_x
+    plain = time_ms(lambda: [ref.bnn_matmul_packed_experts_ref(x, w, k)
+                             for x, w, (_, _, _, k) in zip(xs, layers[0], shapes)], iters=3)
+    b_ms, b_by = costs.total(costs.bnn_matmul_packed_experts(e, 1, o, kw) for e, o, kw, _ in shapes).bound_ms()
+    c_score = capacity_of(LM_SCORE_LEN, cfg)
+    xs_score = [random_words((e, c_score, kw), gen, dev) for e, _, kw, _ in shapes]
+    score_ms = time_ms(lambda: [fn(x, w, k_bits=k) for x, w, (_, _, _, k) in zip(xs_score, layers[0], shapes)])
+    s_ms, s_by = costs.total(costs.bnn_matmul_packed_experts(e, c_score, o, kw)
+                             for e, o, kw, _ in shapes).bound_ms()
+    print(f"  bnn_matmul_packed_experts per {MOE_ARCH} decode layer (3 launches at C=1), graph replay: "
+          f"stream {per_layer['stream']} ms, tiled {per_layer['tiled']} ms, torch.bmm bf16 "
+          f"{per_layer['torch.bmm']} ms; bound {b_ms} ms ({b_by}); plain {plain} ms")
+    print(f"  bnn_matmul_packed_experts per scoring layer (C={c_score}, tiled, events): {score_ms} ms; "
+          f"bound {s_ms} ms ({s_by})")
+    return dict(source="src/repro_torch/csrc/bnn_matmul.cu",
+                replaces="src/repro/layers/moe.py:104",
+                max_abs_err=err, ms=per_layer["stream"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=per_layer["torch.bmm"], tiled_ms=per_layer["tiled"], scoring_ms=score_ms,
+                scoring_bound_ms=s_ms)
+
+
+def init_model(cfg, label: str) -> dict:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, SEED, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    print(f"{label}: init_params {time.perf_counter() - t0} s, {torch.cuda.memory_allocated() / 1e9} GB "
+          f"resident (peak {torch.cuda.max_memory_allocated() / 1e9} GB)")
+    return params
+
+
+def free(params: dict) -> None:
+    params.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def drive_moe_mla(dev, gen) -> tuple[dict, dict]:
+    """The MoE/MLA phase (module docstring, step 10).  Returns the expert
+    kernel's launches by path, and by route in qwen3's serving run."""
+    by_path = {}
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH, quant=MOE_QUANT)
+    print(f"{MOE_ARCH} at its published config: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"{cfg.quant.mode} on {cfg.quant.targets}")
+    params = init_model(cfg, MOE_ARCH)
+    by_path["qwen3 serving"] = drive_serving(dev, cfg, params, LM_REQUESTS, MOE_ARCH)["bnn_matmul_packed_experts"]
+    serving_routes = dict(bnn_matmul.bnn_matmul_packed_experts.launches_by_route)
+    by_path["qwen3 scoring"] = score(dev, cfg, params, gen, label=MOE_ARCH)["bnn_matmul_packed_experts"]
+    free(params)
+    print(f"{MOE_ARCH} phase: {time.perf_counter() - t_phase} s")
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MLA_ARCH, quant=MOE_QUANT, num_layers=MLA_LAYERS)
+    print(f"{MLA_ARCH} at published widths: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, MLA kv_lora {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.top_k} + {cfg.moe.num_shared} shared, {cfg.dtype}, {cfg.quant.mode}")
+    params = init_model(cfg, MLA_ARCH)
+    by_path["deepseek serving"] = drive_serving(dev, cfg, params, SMALL_REQUESTS,
+                                                MLA_ARCH)["bnn_matmul_packed_experts"]
+    free(params)
+    print(f"{MLA_ARCH} phase: {time.perf_counter() - t_phase} s")
+
+    for arch in SMALL_ARCHS:
+        t_phase = time.perf_counter()
+        cfg = get_config(arch, quant=MOE_QUANT, num_layers=SMALL_LAYERS)
+        print(f"{arch} at published widths, {cfg.num_layers} layers, head dim {cfg.resolved_head_dim}, "
+              f"attention {cfg.attention}, rotary share {cfg.rotary_pct}, decode carry "
+              f"{cfg.decode_cache_carry}")
+        params = init_model(cfg, arch)
+        drive_serving(dev, cfg, params, SMALL_REQUESTS, arch)
+        if arch == "stablelm-3b":  # flash at D = 80 on the tma route
+            score(dev, cfg, params, gen, label=arch)
+        free(params)
+        print(f"{arch} phase: {time.perf_counter() - t_phase} s")
+
+    t_phase = time.perf_counter()
+    for arch in ASSIGNED_ARCHS:
+        serve_launch.main(["--arch", arch, "--reduced", "--device", "cuda"])
+    print(f"launch.serve --reduced, {len(ASSIGNED_ARCHS)} archs: {time.perf_counter() - t_phase} s")
+    return by_path, serving_routes
 
 
 # The keys every entry of the kernels line has, in this order; a record's
@@ -1811,7 +2056,18 @@ def main() -> int:
     print(f"init_params: {time.perf_counter() - t0} s")
     records["bnn_matmul_packed"]["launches"] = drive_serving(dev, cfg, lm_params)["bnn_matmul_packed"]
     records["flash_attention"]["launches"] = drive_scoring(dev, cfg, lm_params, gen)["flash_attention"]
+    free(lm_params)
     print(f"LM phases: {time.perf_counter() - t_lm} s")
+
+    t_moe = time.perf_counter()
+    print("MoE / MLA phase; kernel vs plain PyTorch, on the card:")
+    records["bnn_matmul_packed_experts"] = check_bnn_matmul_packed_experts(dev, gen)
+    torch.cuda.empty_cache()
+    print(f"expert kernel checks: {time.perf_counter() - t_moe} s")
+    by_path, by_route = drive_moe_mla(dev, gen)
+    records["bnn_matmul_packed_experts"].update(launches=by_path["qwen3 serving"], launches_by_path=by_path,
+                                                launches_by_route=by_route)
+    print(f"MoE / MLA phase: {time.perf_counter() - t_moe} s")
 
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],

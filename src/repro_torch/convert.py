@@ -73,7 +73,8 @@ def lm_params_from_jax(tree: dict, cfg, *, device="cuda") -> dict:
     ``"layers"`` as one dict per layer, on ``device``:
 
     * packed sign words (uint32) -> int32 bit views, bit for bit;
-    * ``alpha`` stays float32 (the reference keeps it so);
+    * ``alpha`` and the MoE ``router`` stay float32 (the reference keeps
+      them so, whatever the model's type);
     * every other float leaf -> ``cfg.param_dtype()``.
     """
     from repro_torch.device import resolve_device
@@ -81,22 +82,22 @@ def lm_params_from_jax(tree: dict, cfg, *, device="cuda") -> dict:
     dev = resolve_device(device)
     dtype = cfg.param_dtype()
 
-    def leaf(name: str, a) -> torch.Tensor:
+    def leaf(path: tuple, a) -> torch.Tensor:
         a = np.asarray(a)
         if a.dtype == np.uint32:
             return torch.from_numpy(a.view(np.int32).copy()).to(dev)
         if a.dtype.kind in "iu":
             return torch.from_numpy(a.astype(np.int32)).to(dev)
         t = torch.from_numpy(a.astype(np.float32))
-        return t.to(dev, torch.float32 if name == "alpha" else dtype)
+        return t.to(dev, torch.float32 if path[-1] == "alpha" or "router" in path else dtype)
 
-    def walk(node, name=""):
+    def walk(node, path=()):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        return leaf(name, node)
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return leaf(path, node)
 
-    out = {k: walk(v, k) for k, v in tree.items() if k != "layers"}
-    stacked = walk(tree["layers"], "layers")
+    out = {k: walk(v, (k,)) for k, v in tree.items() if k != "layers"}
+    stacked = walk(tree["layers"], ("layers",))
     n_layers = len(next(iter(_leaves(stacked))))
     out["layers"] = [_index(stacked, i) for i in range(n_layers)]
     return out

@@ -37,6 +37,20 @@
 // Ragged M, N and Kw are masked here, not padded by the caller: rows past M
 // or N load 0 and are never stored, and the word loop stops at Kw.  BM is 16
 // (TM = 1) for M <= 16, else 64 (TM = 4).
+//
+// Experts: the same two kernels, with an expert grid axis, also serve
+// layers/moe.py's batched packed expert GEMM (bnn_matmul_packed_experts).
+// It replaces no Pallas kernel but the jnp contraction at
+// src/repro/layers/moe.py:104-124, which XLA fuses on the TPU.  x (E, C, Kw)
+// and w (E, O, Kw) give out (E, C, O), each expert's slice computed exactly
+// as above: blockIdx.z is the expert, and each block moves its x, w and out
+// pointers by the expert's stride (C * Kw, O * Kw and C * O words) before
+// it starts.  It is bound by the expert weights, read once: E * O * Kw * 4
+// bytes at 3.35 TB/s (25.2 MB, about 7.5 us, for each of qwen3-moe-30b-a3b's
+// three launches a layer).  Like the reference it computes every capacity
+// slot of every expert, empty ones included (an empty slot's row of x holds
+// the packed signs of zeros); layers/moe.py gathers only the kept slots
+// back.
 
 #include "common.cuh"
 
@@ -52,6 +66,10 @@ __global__ void __launch_bounds__(kThreads)
 bnn_matmul_packed_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ w,
                          int* __restrict__ out, int m, int n, int kw, int affine) {
   constexpr int BM = 16 * TM;
+  const long long e = blockIdx.z;  // the expert (0 for the plain GEMM)
+  x += e * m * kw;
+  w += e * n * kw;
+  out += e * m * n;
   __shared__ uint32_t xs[BM * kLd];
   __shared__ uint32_t ws[kBN * kLd];
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -100,10 +118,10 @@ bnn_matmul_packed_kernel(const uint32_t* __restrict__ x, const uint32_t* __restr
 }
 
 template <int TM>
-int launch(const void* x, const void* w, void* out, int m, int n, int kw, int k_bits,
+int launch(const void* x, const void* w, void* out, int experts, int m, int n, int kw, int k_bits,
            cudaStream_t stream) {
   constexpr int BM = 16 * TM;
-  const dim3 grid((n + kBN - 1) / kBN, (m + BM - 1) / BM);
+  const dim3 grid((n + kBN - 1) / kBN, (m + BM - 1) / BM, experts);
   // The affine term is computed in 64 bits and fits int32 for kw < 2^25.
   const int affine = static_cast<int>(-2LL * kw * 32 + k_bits);
   bnn_matmul_packed_kernel<TM><<<grid, kThreads, 0, stream>>>(
@@ -126,6 +144,10 @@ __global__ void __launch_bounds__(kStreamThreads)
 bnn_matmul_stream_kernel(const uint4* __restrict__ x, const uint4* __restrict__ w,
                          int* __restrict__ out, int m, int n, int chunks, int affine) {
   extern __shared__ uint4 xs[];  // [m][chunks]
+  const long long e = blockIdx.z;  // the expert (0 for the plain GEMM)
+  x += e * m * chunks;
+  w += e * n * chunks;
+  out += e * m * n;
   for (int i = threadIdx.x; i < m * chunks; i += kStreamThreads) xs[i] = x[i];
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -169,44 +191,73 @@ bnn_matmul_stream_kernel(const uint4* __restrict__ x, const uint4* __restrict__ 
 }
 
 template <int MT, int LPR>
-int launch_stream(const void* x, const void* w, void* out, int m, int n, int chunks, int affine,
-                  cudaStream_t stream) {
+int launch_stream(const void* x, const void* w, void* out, int experts, int m, int n, int chunks,
+                  int affine, cudaStream_t stream) {
   constexpr int kCols = kStreamThreads / 32 * (32 / LPR);  // output columns per block
   const size_t smem = static_cast<size_t>(m) * chunks * sizeof(uint4);
-  bnn_matmul_stream_kernel<MT, LPR><<<(n + kCols - 1) / kCols, kStreamThreads, smem, stream>>>(
+  const dim3 grid((n + kCols - 1) / kCols, 1, experts);
+  bnn_matmul_stream_kernel<MT, LPR><<<grid, kStreamThreads, smem, stream>>>(
       static_cast<const uint4*>(x), static_cast<const uint4*>(w), static_cast<int*>(out), m, n,
       chunks, affine);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int MT>
-int launch_stream_mt(const void* x, const void* w, void* out, int m, int n, int chunks,
-                     int affine, cudaStream_t stream) {
-  if (chunks <= 8 * kStreamLoads) return launch_stream<MT, 8>(x, w, out, m, n, chunks, affine, stream);
-  if (chunks <= 16 * kStreamLoads) return launch_stream<MT, 16>(x, w, out, m, n, chunks, affine, stream);
-  return launch_stream<MT, 32>(x, w, out, m, n, chunks, affine, stream);
+int launch_stream_mt(const void* x, const void* w, void* out, int experts, int m, int n,
+                     int chunks, int affine, cudaStream_t stream) {
+  if (chunks <= 8 * kStreamLoads)
+    return launch_stream<MT, 8>(x, w, out, experts, m, n, chunks, affine, stream);
+  if (chunks <= 16 * kStreamLoads)
+    return launch_stream<MT, 16>(x, w, out, experts, m, n, chunks, affine, stream);
+  return launch_stream<MT, 32>(x, w, out, experts, m, n, chunks, affine, stream);
 }
 
-}  // namespace
+constexpr int kMaxExperts = 65535;  // grid.z
 
-extern "C" int bnn_matmul_packed_tiled(const void* x, const void* w, void* out, int m, int n,
-                                       int kw, int k_bits, void* stream) {
+int tiled(const void* x, const void* w, void* out, int experts, int m, int n, int kw, int k_bits,
+          void* stream) {
+  if (experts < 1 || experts > kMaxExperts) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return m <= 16 ? launch<1>(x, w, out, m, n, kw, k_bits, s)
-                 : launch<4>(x, w, out, m, n, kw, k_bits, s);
+  return m <= 16 ? launch<1>(x, w, out, experts, m, n, kw, k_bits, s)
+                 : launch<4>(x, w, out, experts, m, n, kw, k_bits, s);
 }
 
-extern "C" int bnn_matmul_packed_stream(const void* x, const void* w, void* out, int m, int n,
-                                        int kw, int k_bits, void* stream) {
+int stream_route(const void* x, const void* w, void* out, int experts, int m, int n, int kw,
+                 int k_bits, void* stream) {
   const uintptr_t both = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w);
-  if (m < 1 || m > kStreamMaxRows || kw % 4 || both % 16 ||
+  if (experts < 1 || experts > kMaxExperts || m < 1 || m > kStreamMaxRows || kw % 4 || both % 16 ||
       static_cast<size_t>(m) * kw * 4 > kDefaultSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int chunks = kw / 4;
   const int affine = static_cast<int>(-2LL * kw * 32 + k_bits);
-  if (m <= 4) return launch_stream_mt<4>(x, w, out, m, n, chunks, affine, s);
-  if (m <= 8) return launch_stream_mt<8>(x, w, out, m, n, chunks, affine, s);
-  return launch_stream_mt<16>(x, w, out, m, n, chunks, affine, s);
+  if (m <= 4) return launch_stream_mt<4>(x, w, out, experts, m, n, chunks, affine, s);
+  if (m <= 8) return launch_stream_mt<8>(x, w, out, experts, m, n, chunks, affine, s);
+  return launch_stream_mt<16>(x, w, out, experts, m, n, chunks, affine, s);
+}
+
+}  // namespace
+
+extern "C" int bnn_matmul_packed_tiled(const void* x, const void* w, void* out, int m, int n,
+                                       int kw, int k_bits, void* stream) {
+  return tiled(x, w, out, 1, m, n, kw, k_bits, stream);
+}
+
+extern "C" int bnn_matmul_packed_stream(const void* x, const void* w, void* out, int m, int n,
+                                        int kw, int k_bits, void* stream) {
+  return stream_route(x, w, out, 1, m, n, kw, k_bits, stream);
+}
+
+// Experts: x (E, C, Kw), w (E, O, Kw), out (E, C, O), all contiguous; the
+// stream route's limits hold for one expert's (C, Kw) (each expert's slices
+// stay 16-byte aligned because Kw is a multiple of 4).
+extern "C" int bnn_matmul_packed_experts_tiled(const void* x, const void* w, void* out, int e,
+                                               int c, int o, int kw, int k_bits, void* stream) {
+  return tiled(x, w, out, e, c, o, kw, k_bits, stream);
+}
+
+extern "C" int bnn_matmul_packed_experts_stream(const void* x, const void* w, void* out, int e,
+                                                int c, int o, int kw, int k_bits, void* stream) {
+  return stream_route(x, w, out, e, c, o, kw, k_bits, stream);
 }

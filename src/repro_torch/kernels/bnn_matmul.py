@@ -19,6 +19,13 @@ chosen by :func:`route`:
 
 Each launch is counted in ``bnn_matmul_packed.launches`` and, by route, in
 ``bnn_matmul_packed.launches_by_route``.
+
+:func:`bnn_matmul_packed_experts` is the same GEMM with an expert axis, the
+batched packed expert contraction of ``layers/moe.py`` (the reference's jnp
+``_packed_expert_mm``, ``src/repro/layers/moe.py:104-124``; no Pallas kernel):
+the same two kernels with the expert on grid.z, one C entry point per route,
+the route picked by :func:`route` on one expert's (C, Kw).  It counts its own
+launches the same way.
 """
 from __future__ import annotations
 
@@ -27,13 +34,17 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import bnn_matmul_packed_ref
+from repro_torch.kernels.ref import bnn_matmul_packed_experts_ref, bnn_matmul_packed_ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 ROUTES = ("stream", "tiled")
 _ENTRY = {path: f"bnn_matmul_packed_{path}" for path in ROUTES}
-_SIGNATURES = {name: ([_P, _P, _P, _I, _I, _I, _I, _P], _I) for name in _ENTRY.values()}
+_EXPERT_ENTRY = {path: f"bnn_matmul_packed_experts_{path}" for path in ROUTES}
+_SIGNATURES = {
+    **{name: ([_P, _P, _P, _I, _I, _I, _I, _P], _I) for name in _ENTRY.values()},
+    **{name: ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I) for name in _EXPERT_ENTRY.values()},
+}
 
 # The stream route's limits (csrc/bnn_matmul.cu): at most STREAM_MAX_M rows of
 # x, staged whole in the default 48 KB of shared memory, read as 16-byte words.
@@ -43,6 +54,8 @@ _ALIGN = 16
 
 # Row blocks of the tiled kernel's grid (grid.y): at most 65535 tiles of 64 rows.
 _MAX_ROWS = 65535 * 64
+# Experts on grid.z.
+_MAX_EXPERTS = 65535
 
 
 def route(x_packed: torch.Tensor, w_packed: torch.Tensor) -> str:
@@ -56,17 +69,9 @@ def route(x_packed: torch.Tensor, w_packed: torch.Tensor) -> str:
     return "tiled"
 
 
-def bnn_matmul_packed(
-    x_packed: torch.Tensor, w_packed: torch.Tensor, *, k_bits: int
-) -> torch.Tensor:
-    """``sign(x) @ sign(w).T`` on packed operands.
-
-    x_packed: (M, Kw) int32 views; w_packed: (N, Kw) int32 views;
-    ``0 <= k_bits <= Kw * 32``.  Returns (M, N) int32.
-    """
-    if x_packed.ndim != 2 or w_packed.ndim != 2:
-        raise ValueError("x_packed must be (M, Kw), w_packed (N, Kw)")
-    (m, kw), (n, kw2) = x_packed.shape, w_packed.shape
+def _check_operands(x_packed: torch.Tensor, w_packed: torch.Tensor, k_bits: int) -> None:
+    """The checks both wrappers make: int32 bit views of one K on one device."""
+    kw, kw2 = x_packed.shape[-1], w_packed.shape[-1]
     if kw != kw2:
         raise ValueError(f"K mismatch: {kw} vs {kw2}")
     if x_packed.dtype != torch.int32 or w_packed.dtype != torch.int32:
@@ -77,10 +82,24 @@ def bnn_matmul_packed(
         raise ValueError(f"k_bits={k_bits} outside [0, {kw * 32}]")
     if x_packed.device != w_packed.device:
         raise ValueError(f"x on {x_packed.device}, w on {w_packed.device}")
+    if x_packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"packed GEMMs run on CPU or CUDA tensors, got {x_packed.device}")
+
+
+def bnn_matmul_packed(
+    x_packed: torch.Tensor, w_packed: torch.Tensor, *, k_bits: int
+) -> torch.Tensor:
+    """``sign(x) @ sign(w).T`` on packed operands.
+
+    x_packed: (M, Kw) int32 views; w_packed: (N, Kw) int32 views;
+    ``0 <= k_bits <= Kw * 32``.  Returns (M, N) int32.
+    """
+    if x_packed.ndim != 2 or w_packed.ndim != 2:
+        raise ValueError("x_packed must be (M, Kw), w_packed (N, Kw)")
+    (m, kw), n = x_packed.shape, w_packed.shape[0]
+    _check_operands(x_packed, w_packed, k_bits)
     if x_packed.device.type == "cpu":
         return bnn_matmul_packed_ref(x_packed, w_packed, k_bits)
-    if x_packed.device.type != "cuda":
-        raise ValueError(f"bnn_matmul_packed runs on CPU or CUDA tensors, got {x_packed.device}")
     _build.refuse_grad("bnn_matmul_packed", x_packed, w_packed)
     if m > _MAX_ROWS or kw >= 1 << 25:
         raise ValueError(f"M={m} or Kw={kw} is beyond the kernel's grid")
@@ -108,5 +127,60 @@ def _launch(x_packed, w_packed, out, k_bits: int, path: str) -> torch.Tensor:
     return out
 
 
+def experts_route(x_packed: torch.Tensor, w_packed: torch.Tensor) -> str:
+    """The kernel a CUDA launch of :func:`bnn_matmul_packed_experts` on these
+    (contiguous, E >= 1) operands takes: :func:`route` on the first expert's
+    (C, Kw) and (O, Kw); every expert's slice has its shape and alignment."""
+    return route(x_packed[0], w_packed[0])
+
+
+def bnn_matmul_packed_experts(
+    x_packed: torch.Tensor, w_packed: torch.Tensor, *, k_bits: int
+) -> torch.Tensor:
+    """``sign(x[e]) @ sign(w[e]).T`` for every expert ``e`` on packed operands.
+
+    x_packed: (E, C, Kw) int32 views; w_packed: (E, O, Kw) int32 views, both
+    zero-padded past ``k_bits``; ``0 <= k_bits <= Kw * 32``.  Returns
+    (E, C, O) int32.  A CPU tensor runs the plain version
+    (``ref.bnn_matmul_packed_experts_ref``); a CUDA tensor launches the
+    kernel on :func:`experts_route`'s route.
+    """
+    if x_packed.ndim != 3 or w_packed.ndim != 3:
+        raise ValueError("x_packed must be (E, C, Kw), w_packed (E, O, Kw)")
+    (e, c, kw), (e2, o, _) = x_packed.shape, w_packed.shape
+    if e != e2:
+        raise ValueError(f"expert count mismatch: {e} vs {e2}")
+    _check_operands(x_packed, w_packed, k_bits)
+    if x_packed.device.type == "cpu":
+        return bnn_matmul_packed_experts_ref(x_packed, w_packed, k_bits)
+    _build.refuse_grad("bnn_matmul_packed_experts", x_packed, w_packed)
+    if e > _MAX_EXPERTS or c > _MAX_ROWS or kw >= 1 << 25:
+        raise ValueError(f"E={e}, C={c} or Kw={kw} is beyond the kernel's grid")
+    x_packed, w_packed = x_packed.contiguous(), w_packed.contiguous()
+    out = torch.empty((e, c, o), dtype=torch.int32, device=x_packed.device)
+    if out.numel() == 0:
+        return out
+    if kw == 0:
+        return out.fill_(k_bits)
+    return _launch_experts(x_packed, w_packed, out, k_bits, experts_route(x_packed, w_packed))
+
+
+def _launch_experts(x_packed, w_packed, out, k_bits: int, path: str) -> torch.Tensor:
+    """Launch route ``path``'s expert kernel on checked, contiguous operands."""
+    e, c, kw = x_packed.shape
+    lib = _build.library("bnn_matmul", _SIGNATURES)
+    with torch.cuda.device(x_packed.device):
+        code = getattr(lib, _EXPERT_ENTRY[path])(
+            x_packed.data_ptr(), w_packed.data_ptr(), out.data_ptr(), e, c, out.shape[2], kw,
+            k_bits, _build.stream_of(x_packed),
+        )
+    _build.check(lib, code, "bnn_matmul_packed_experts")
+    bnn_matmul_packed_experts.launches += 1
+    bnn_matmul_packed_experts.launches_by_route[path] += 1
+    return out
+
+
 bnn_matmul_packed.launches = 0
 bnn_matmul_packed.launches_by_route = dict.fromkeys(ROUTES, 0)
+bnn_matmul_packed_experts.launches = 0
+bnn_matmul_packed_experts.launches_by_route = dict.fromkeys(ROUTES, 0)

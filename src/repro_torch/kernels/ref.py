@@ -42,6 +42,20 @@ def bnn_matmul_packed_ref(
     return out
 
 
+def bnn_matmul_packed_experts_ref(
+    x_packed: torch.Tensor, w_packed: torch.Tensor, k_bits: int
+) -> torch.Tensor:
+    """:func:`bnn_matmul_packed_ref` for each expert: x_packed (E, C, Kw) and
+    w_packed (E, O, Kw) int32 views -> (E, C, O) int32.  The plain version
+    of ``bnn_matmul_packed_experts`` (the reference's ``_packed_expert_mm``
+    before its affine, ``src/repro/layers/moe.py:120-123``)."""
+    e, c, _ = x_packed.shape
+    out = torch.empty((e, c, w_packed.shape[1]), dtype=torch.int32, device=x_packed.device)
+    for i in range(e):
+        out[i] = bnn_matmul_packed_ref(x_packed[i], w_packed[i], k_bits)
+    return out
+
+
 def sign(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """``+1`` where ``x >= 0`` (so ``-0.0`` -> +1), else ``-1`` (NaN -> -1).
 

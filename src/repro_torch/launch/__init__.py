@@ -1,0 +1,2 @@
+"""Launchers (the reference's ``launch/``): ``serve`` stands up an LM
+``Engine`` for an architecture."""

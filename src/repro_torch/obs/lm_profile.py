@@ -1,7 +1,8 @@
 """Where an LM decode step's time goes, on one GPU: a ``torch.profiler`` trace.
 
-Builds phi3-mini-3.8b at its published widths (weights from a seed, bf16,
-``bnn_packed`` projections), fills the 4 slots of an ``Engine`` with
+Builds ``--arch`` (default phi3-mini-3.8b; any ported arch, such as
+qwen3-moe-30b-a3b) at its published config (weights from a seed, bf16,
+``bnn_packed`` projections and experts), fills the 4 slots of an ``Engine`` with
 128-token prompts, takes 3 warm-up decode steps, then traces ``--steps``
 decode steps and prints, per step:
 
@@ -12,7 +13,7 @@ decode steps and prints, per step:
 
 Run from the repository root on a machine with a CUDA device::
 
-    PYTHONPATH=src python -m repro_torch.obs.lm_profile [--steps 5] [--trace out.json]
+    PYTHONPATH=src python -m repro_torch.obs.lm_profile [--arch A] [--steps 5] [--trace out.json]
 """
 from __future__ import annotations
 
@@ -52,13 +53,14 @@ def _busy_us(events) -> float:
 @torch.inference_mode()  # serving records no autograd graph
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=ARCH, help="a ported architecture")
     ap.add_argument("--steps", type=int, default=5, help="decode steps to trace")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("lm_profile needs a CUDA device")
 
-    cfg = get_config(ARCH, quant=QuantConfig(mode="bnn_packed", targets=("ffn", "attn_proj")))
+    cfg = get_config(args.arch, quant=QuantConfig(mode="bnn_packed", targets=("ffn", "attn_proj", "moe")))
     params = models.init_params(cfg, SEED, device="cuda")
     eng = Engine(cfg, params, max_batch=SLOTS, max_len=PROMPT + 3 + args.steps + 8)
     rng = np.random.default_rng(SEED)

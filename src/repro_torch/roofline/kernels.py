@@ -97,6 +97,14 @@ def bnn_matmul_packed(m: int, n: int, kw: int) -> Cost:
     return Cost((m * kw + n * kw + m * n) * 4, m * n * kw, hw.POPC_PER_S)
 
 
+def bnn_matmul_packed_experts(e: int, c: int, o: int, kw: int) -> Cost:
+    """The ±1 GEMM of every expert on packed words: (e, c, kw) and
+    (e, o, kw) words read, (e, c, o) int32 written; one population count per
+    word pair.  Every capacity slot counts, empty ones too: the kernel
+    computes them, as the reference does."""
+    return Cost((e * c * kw + e * o * kw + e * c * o) * 4, e * c * o * kw, hw.POPC_PER_S)
+
+
 def bnn_matmul_mxu(m: int, k: int, n: int) -> Cost:
     """The ±1 GEMM on the tensor cores: (m, k) and (k, n) bf16 read, (m, n)
     float32 written; 2mnk bf16 operations."""

@@ -10,7 +10,9 @@ slots and the dataplane fleet pipeline.
   As in the reference, the batched cache has one shared ``index``:
   installing a prompt sets it to the largest slot position seen
   (``_install``), and a shorter slot attends over its zero-padded
-  positions.  This approximation is kept so that the tokens equal the
+  positions.  Also as in the reference, a decode step runs every slot, so
+  an empty slot's stale token is routed through an MoE layer and takes
+  expert capacity.  Both are kept so that the tokens equal the
   reference's.
 
   Prefill and decode steps run under ``torch.inference_mode()``: serving
@@ -50,8 +52,8 @@ from repro_torch.dataplane import fleet as _fleet
 from repro_torch.dataplane.lowering import LoweredProgram, lower_program
 from repro_torch.dataplane.plan import ExecutionPlan
 from repro_torch.device import resolve_device
-from repro_torch.layers.attention import KVCache
 from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.models.model import cache_fields
 from repro_torch.obs.slo import BreachEvent, SloSpec, SloStatus, SloTracker
 from repro_torch.obs.windows import WindowedHistogram, WindowedRate
 
@@ -146,10 +148,12 @@ class Engine:
             self.slot_budget[slot] = req.max_new_tokens - 1
             self.last_token[slot] = tok
 
-    def _install(self, slot: int, pcache: KVCache, prompt_len: int) -> None:
-        """Copy a prefilled (batch=1, len=S) cache into the slot axis of the
-        batched cache, zero-filling the sequence axis up to max_len."""
-        for dst, src in ((self.cache.k, pcache.k), (self.cache.v, pcache.v)):
+    def _install(self, slot: int, pcache, prompt_len: int) -> None:
+        """Copy a prefilled (batch=1, len=S) cache (a ``KVCache``'s k and v,
+        an ``MlaCache``'s c_kv and k_rope) into the slot axis of the batched
+        cache, zero-filling the sequence axis up to max_len."""
+        for name in cache_fields(pcache):
+            dst, src = getattr(self.cache, name), getattr(pcache, name)
             dst[:, slot].zero_()
             dst[:, slot, : src.shape[2]] = src[:, 0].to(dst.dtype)
         # one index for every slot: the largest position (see module doc)
@@ -179,7 +183,7 @@ class Engine:
                 self.slots[slot] = None
 
 
-def _set_index(cache: KVCache, value: int) -> KVCache:
+def _set_index(cache, value: int):
     return dataclasses.replace(cache, index=int(value))
 
 

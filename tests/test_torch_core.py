@@ -276,7 +276,8 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.train.checkpoint, repro_torch.train.bnn_trainer, "
         "repro_torch.dataplane.multitenant, repro_torch.dataplane.pcap, "
         "repro_torch.dataplane.fleet, repro_torch.dataplane.factory, repro_torch.obs.export, "
-        "repro_torch.roofline.hw, repro_torch.roofline.kernels, repro_torch.roofline.dataplane\n"
+        "repro_torch.roofline.hw, repro_torch.roofline.kernels, repro_torch.roofline.dataplane, "
+        "repro_torch.layers.moe, repro_torch.layers.mla, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad); sys.exit(1 if bad else 0)"

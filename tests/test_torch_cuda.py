@@ -1104,3 +1104,109 @@ def test_optable_global_route_indexes_past_2_31(cuda):
     torch.cuda.synchronize()
     assert torch.equal(out[top:], want)
     assert torch.equal(out[:top], regs[:top])
+
+
+# ---------------------------------------------------------------------------
+# The batched packed expert GEMM, and the MoE / MLA models on the card
+# ---------------------------------------------------------------------------
+
+def _expert_operands(rng, e, c, o, kw, k_bits):
+    """Random (E, C, Kw) and (E, O, Kw) packed operands, zero past k_bits."""
+    pairs = [_packed_operands(rng, c, o, kw, k_bits) for _ in range(e)]
+    return torch.stack([x for x, _ in pairs]), torch.stack([w for _, w in pairs])
+
+
+# C of 1 to 16 with Kw a multiple of 4 streams; C of 17 and up, or a ragged
+# Kw (K not a multiple of 128 bits), takes the tiled kernel.  Odd E and
+# ragged O, C and K; qwen3-moe-30b-a3b's gate (E=128, O=768, Kw=64) and down
+# (O=2048, Kw=24) shapes at decode, prefill and scoring capacities.
+@pytest.mark.parametrize("e,c,o,k", [
+    (1, 1, 64, 128), (3, 1, 77, 100), (5, 10, 130, 3000), (7, 16, 33, 256), (7, 17, 33, 256),
+    (3, 160, 70, 513), (128, 1, 768, 2048), (128, 10, 2048, 768), (128, 160, 768, 2048),
+])
+def test_bnn_matmul_packed_experts_matches_plain(cuda, e, c, o, k):
+    rng = np.random.default_rng(e * 1000 + c + k)
+    kw = -(-k // 32)
+    x, w = _expert_operands(rng, e, c, o, kw, k)
+    fn = bnn_matmul.bnn_matmul_packed_experts
+    path = "stream" if c <= bnn_matmul.STREAM_MAX_M and kw % 4 == 0 else "tiled"
+    before = fn.launches
+    out = _launched(fn, path, lambda: fn(x.to(cuda), w.to(cuda), k_bits=k))
+    assert fn.launches == before + 1
+    assert torch.equal(out.cpu(), ref.bnn_matmul_packed_experts_ref(x, w, k))
+    if path == "stream":  # the tiled route computes the same on any shape
+        out = _launched(fn, "tiled", lambda: bnn_matmul._launch_experts(
+            x.to(cuda), w.to(cuda), torch.empty_like(out), k, "tiled"))
+        assert torch.equal(out.cpu(), ref.bnn_matmul_packed_experts_ref(x, w, k))
+
+
+def test_bnn_matmul_packed_experts_edges(cuda):
+    """No expert, no slot, no word: nothing is launched."""
+    fn = bnn_matmul.bnn_matmul_packed_experts
+    before = fn.launches
+    x = torch.zeros((2, 3, 4), dtype=torch.int32, device=cuda)
+    assert fn(x[:0], x[:0], k_bits=128).shape == (0, 3, 3)
+    assert fn(x[:, :0], x, k_bits=128).shape == (2, 0, 3)
+    empty = torch.zeros((2, 3, 0), dtype=torch.int32, device=cuda)
+    assert torch.equal(fn(empty, empty, k_bits=0), torch.zeros((2, 3, 3), dtype=torch.int32, device=cuda))
+    assert fn.launches == before
+    assert torch.equal(fn(x, x, k_bits=128), torch.full((2, 3, 3), 128, dtype=torch.int32, device=cuda))
+
+
+def test_stablelm_flash_at_head_dim_80_takes_tma(cuda):
+    """stablelm-3b's heads are 80 wide (d_model 2560 over 32 heads): flash's
+    tma route, against the plain version."""
+    cfg = get_config("stablelm-3b")
+    assert cfg.resolved_head_dim == 80
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((4, 300, 80), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(3))
+    fa = flash_attention.flash_attention
+    got = _launched(fa, "tma", lambda: fa(q, k, v))
+    want = flash_attention.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+def _tiny_moe(**kw):
+    """A two-layer qwen3-moe of width 128 (4 words a row: the stream
+    route's shapes) with 8 experts of 128, top 2."""
+    import dataclasses
+
+    cfg = get_config(
+        "qwen3-moe-30b-a3b", num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
+        d_ff=128, vocab_size=97, attn_q_chunk=16, init_std=0.5, dtype="float32",
+        quant=QuantConfig(mode="bnn_packed", targets=("ffn", "attn_proj", "moe")), **kw,
+    )
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=8, top_k=2,
+                                                            expert_ffn_dim=128))
+
+
+def test_moe_engine_step_on_cuda_launches_and_matches_cpu(cuda):
+    """A tiny packed qwen3-moe serves the CPU's tokens on the card; one
+    decode step of its 2 slots makes, per layer, 4 packed projection
+    launches, 3 expert launches (capacity 1: the stream route) and 7
+    bit-packs."""
+    from repro_torch import models
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = _tiny_moe()
+    params = models.init_params(cfg, 1, device="cpu")
+    outs = []
+    for dev, p in (("cpu", params), (cuda, _to(params, cuda))):
+        eng = Engine(cfg, p, max_batch=2, max_len=64, device=dev)
+        for i in range(3):
+            eng.submit(Request(rid=i, prompt=(np.arange(4 + 5 * i) * 7 + i) % 90, max_new_tokens=3 + 2 * i))
+        outs.append([(r.rid, r.output) for r in eng.run()])
+    assert outs[0] == outs[1]
+
+    eng = Engine(cfg, _to(params, cuda), max_batch=2, max_len=64, device=cuda)
+    eng.submit(Request(rid=0, prompt=np.arange(5) % 90, max_new_tokens=4))
+    eng._admit()
+    experts, packed, pack = (bnn_matmul.bnn_matmul_packed_experts, bnn_matmul.bnn_matmul_packed,
+                             bitpack.bitpack)
+    before = (experts.launches, dict(experts.launches_by_route), packed.launches, pack.launches)
+    eng._step()
+    torch.cuda.synchronize()
+    assert experts.launches - before[0] == 3 * cfg.num_layers
+    assert experts.launches_by_route["stream"] - before[1]["stream"] == 3 * cfg.num_layers
+    assert packed.launches - before[2] == 4 * cfg.num_layers
+    assert pack.launches - before[3] == 7 * cfg.num_layers

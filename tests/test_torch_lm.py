@@ -352,13 +352,15 @@ def test_flash_cannot_seed_a_cache(model):
 
 def test_unported_families_and_missing_card_raise():
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(dataclasses.replace(tcfg, family="moe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_cache(dataclasses.replace(tcfg, attention="mla"), 1, 8, device="cpu")
+    for family, item in (("ssm", 16), ("hybrid", 16), ("vlm", 17), ("audio", 17)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+            tm.init_params(dataclasses.replace(tcfg, family=family), device="cpu")
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+            tm.init_cache(dataclasses.replace(tcfg, family=family), 1, 8, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tm.init_params(tcfg)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tengine.Engine(tcfg, {})
-    assert tbase.list_archs() == ["phi3-mini-3.8b"]
+    assert tbase.list_archs() == ["chatglm3-6b", "deepseek-v2-236b", "minicpm3-4b",
+                                  "phi3-mini-3.8b", "qwen3-moe-30b-a3b", "stablelm-3b"]

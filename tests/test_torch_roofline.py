@@ -189,3 +189,32 @@ def test_export_all_renders_in_obs_report(tmp_path):
         names = {e["name"] for e in json.load(fh)["traceEvents"]}
     assert {"stream:fleet_run", "compile:fleet_chunk", "execute:fleet_chunk"} <= names
     assert open(paths["metrics_prom"]).read().count("roofline_pps_bound{") == 4
+
+
+@pytest.mark.parametrize("arch,layers,per_launch,step,weights_alone", [
+    ("qwen3-moe-30b-a3b", 48, (0.007639345671641792, 0.007828862089552238),
+     1.1091625647761194, 1.0817548226865672),
+    ("deepseek-v2-236b", 60, (0.04727517611940299, 0.047938483582089554),
+     8.549330149253732, 8.451209552238806),
+])
+def test_expert_gemm_bounds_per_decode_step(arch, layers, per_launch, step, weights_alone):
+    """The batched packed expert GEMM at a decode step of the ``Engine``'s 4
+    slots (capacity 1): a layer's gate and up launches (E, 1, f) x (E, f,
+    d/32) and its down launch (E, 1, d) x (E, d, f/32), from the published
+    shapes alone.  Each launch is bound by its expert weights (qwen3:
+    25.2 MB, deepseek: 157 MB); the weights alone, 3 * E * f * d / 8 bytes
+    a layer, give 1.08 and 8.45 ms a step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.layers.moe import capacity_of
+
+    cfg = get_config(arch)
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_ffn_dim
+    assert cfg.num_layers == layers
+    c = capacity_of(4, cfg)
+    assert c == 1
+    gate = rk.bnn_matmul_packed_experts(e, c, f, d // 32)
+    down = rk.bnn_matmul_packed_experts(e, c, d, f // 32)
+    assert (gate.bound_ms(), down.bound_ms()) == ((per_launch[0], "bytes"), (per_launch[1], "bytes"))
+    assert (rk.total([gate, gate, down]) * layers).bound_ms() == (step, "bytes")
+    assert (rk.Cost(3 * e * f * d // 8, 0) * layers).bound_ms() == (weights_alone, "bytes")
+    assert e * f * (d // 32) * 4 == e * d * (f // 32) * 4 == {48: 25_165_824, 60: 157_286_400}[layers]
