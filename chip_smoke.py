@@ -115,11 +115,15 @@ What it does, in order:
       ``bnn_matmul_mxu`` (bit for bit, on its tma route at the model's shape
       and a ragged one, and on its staged route, each sign site also on
       planted subnormal signs) and ``flash_attention``
-      (within 3e-2 in bf16 on its tma and wmma routes, 2e-3 in float32)
-      against their plain versions, each case asserting the route its
-      launch took; each kernel is timed beside its plain version and, in
-      turns (kernel, library, library, kernel), beside the one PyTorch call
-      that computes the same function, where there is one;
+      (in bf16 on its tma and wmma routes within bf16 rounding's
+      element-wise bound and an RMS limit, hubert-xlarge's full attention
+      at D = 80, zamba2-1.2b's D = 64 and internvl2-2b's D = 128 among
+      them, 1e-5 in float32; hubert's layer timed too) against their
+      plain versions,
+      each case asserting the route its launch took; each kernel is timed
+      beside its plain version and, in turns (kernel, library, library,
+      kernel), beside the one PyTorch call that computes the same function,
+      where there is one;
    b. drives the public binary-GEMM op ``ops.binary_matmul`` through both
       kernel implementations at a prefill-sized activation;
    c. serves 8 requests through the ``Engine`` (all 32 layers, bf16, packed
@@ -153,14 +157,49 @@ What it does, in order:
       layers: the ``Engine`` serves 4 requests each, launches counted;
       stablelm's ``forward`` with flash at D = 80 takes the tma route;
    e. ``repro_torch.launch.serve.main`` at ``--reduced`` on the card for
-      each of the six ported architectures;
-11. prints one JSON line of per-kernel numbers, then the status line.  The
+      each of the reference's ten architectures: eight serve, and
+      hubert-xlarge (encoder-only) and internvl2-2b (the ``Engine`` prefills
+      no patches) fail as the reference's launcher does;
+11. the SSM, hybrid, VLM and audio models at their published configs
+   (each freed before the next; weights from a fixed seed, bf16,
+   ``bnn_packed`` on ``ffn``, ``attn_proj`` and ``moe``), each first held on
+   a 2-layer float32 unquantized copy at published widths against the
+   port's plain path on the CPU (``check_against_cpu``; flash's f32 route
+   on the card), and its packed projections' kernels held bit for bit
+   against their plain versions at its own shapes (``check_packed_shapes``:
+   bf16 ``bitpack`` on the vec route and ``bnn_matmul_packed`` at a decode
+   step's M = 4 on the stream route, a prompt's M = 384 and scoring's
+   M = 2048 on the tiled route, for each (K, N) of zamba2's shared block,
+   internvl2 and hubert):
+   a. mamba2-1.3b (48 layers, d_model 2048, state 128, 64 SSM heads): the
+      ``Engine`` serves 8 requests as in 9c and ``forward`` scores 2048
+      tokens; no kernel launches at all (Mamba2 projections are never
+      packed and it has no attention);
+   b. zamba2-1.2b (38 layers: 6 groups of 6 with the shared attention +
+      SwiGLU block after each, a 2-layer tail): serves and scores the same
+      way; every packed launch comes from the shared block, 7
+      ``bnn_matmul_packed`` and 7 bf16 ``bitpack`` an application, 6
+      applications a call (``attention_blocks``); flash at D = 64 (tma);
+   c. internvl2-2b (24 layers, 256 patches, vocab 92,553, no decode
+      carry): 4 prompts of 256 seeded patch embeddings and 16 to 128
+      tokens prefilled into one cache and 32 decode steps by hand
+      (``drive_vlm_decode``: the ``Engine`` cannot serve a VLM), then
+      ``forward`` scores 256 patches + 1792 tokens with flash at D = 128;
+   d. hubert-xlarge (48 layers, d_model 1280, head dim 80, encoder-only):
+      ``forward`` over 2048 seeded frames, one full (non-causal)
+      ``flash_attention`` launch a layer on the tma route and 6 packed
+      launches a layer (GELU FFN 2, attention 4);
+   every run's launches exact (``call_launches``), every decode-step GEMM on
+   the stream route, every scoring GEMM tiled;
+12. prints one JSON line of per-kernel numbers, then the status line.  The
    packet kernels' ``launches`` sum their ``launches_by_path`` (the fleet
    phase's runs under ``fleet``), and ``launches_by_route`` splits the same
-   launches by route; the expert GEMM's ``launches`` are qwen3's serving
-   run's, its ``launches_by_path`` each MoE run's.  Every bound is ``repro_torch.roofline``'s: the
-   kernels' bytes and operations (``roofline.kernels``) over the H100 peaks
-   (``roofline.hw``).
+   launches by route; the LM kernels' ``launches`` are phi3's (the expert
+   GEMM's qwen3's) serving or scoring run's, their ``launches_by_path``
+   every LM run's (the bit-pack kernel's LM launches, through its
+   ``bitpack`` wrapper, in ``bitpack_launches_by_path``).  Every bound is
+   ``repro_torch.roofline``'s: the kernels' bytes and operations
+   (``roofline.kernels``) over the H100 peaks (``roofline.hw``).
 
 Every path is driven with all launch counts zeroed just before it and read
 just after.  Serving and scoring run under ``torch.inference_mode()``.  Any failure raises, so the script exits non-zero; it also exits
@@ -209,6 +248,8 @@ from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.configs.archs import ASSIGNED_ARCHS  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.layers.moe import capacity_of  # noqa: E402
+from repro_torch.models.model import cache_tensors, set_index  # noqa: E402
+from repro_torch import tree  # noqa: E402
 from repro_torch.train.bnn_trainer import BnnTrainConfig, BnnTrainer  # noqa: E402
 
 PACKETS = 1 << 20
@@ -1409,7 +1450,7 @@ COUNTED = {
 def zero_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
-        for by in ("launches_by_route", "launches_by_dtype"):
+        for by in ("launches_by_route", "launches_by_dtype", "launches_by_mask"):
             for key in getattr(fn, by, {}):
                 getattr(fn, by)[key] = 0
 
@@ -1429,6 +1470,41 @@ def routed(fn, path: str, call):
     return out
 
 
+BF16_ULP = 2.0 ** -7   # a bf16 value's last place, relative to the value, at most
+
+
+def close_attention(what: str, out: torch.Tensor, want: torch.Tensor, q, k, v, causal: bool) -> float:
+    """Fail unless bf16 attention ``out`` is within what bf16 rounding allows
+    of its plain version ``want`` at every element, and its error's RMS
+    within 2**-6 of the output's RMS; returns the max absolute difference.
+
+    The bound of an element is one bf16 ulp of the value (each side rounds
+    its float32 result to bf16 once: half an ulp each) plus one ulp of the
+    row's softmax-weighted mean of |v| (each side rounds the weights p to
+    bf16 before the PV product, the kernel against its running max, the
+    plain version against the row's max: at most 2**-8 of that mean each).
+    A correct kernel's errors are random and sit far inside it; the RMS
+    limit catches a fault spread thinly over many elements (a wrong scale,
+    a share of the keys dropped), which the output's small values at
+    S = 2048 would hide from an absolute tolerance."""
+    torch.cuda.synchronize()
+    if out.shape != want.shape or out.dtype != want.dtype:
+        raise AssertionError(f"{what}: kernel gives {out.dtype} {tuple(out.shape)}, "
+                             f"plain {want.dtype} {tuple(want.shape)}")
+    mean_abs_v = flash_attention.flash_attention_plain(q.float(), k.float(), v.float().abs(), causal=causal)
+    diff = (out.float() - want.float()).abs()
+    bound = BF16_ULP * (want.float().abs() + mean_abs_v)
+    worst = float((diff / bound).max().item())
+    rms = float(diff.square().mean().sqrt().item()) / float(want.float().square().mean().sqrt().item())
+    top = float(diff.max().item())
+    if not (worst <= 1.0 and rms <= 2 * BF16_ULP):
+        raise AssertionError(f"{what}: max abs diff {top}, {worst} of the element-wise bound (limit 1), "
+                             f"RMS error {rms} of the output's RMS (limit {2 * BF16_ULP})")
+    print(f"  {what}: max abs diff {top}; at most {worst} of the element-wise bound (limit 1); RMS "
+          f"error {rms} of the output's RMS (limit {2 * BF16_ULP})")
+    return top
+
+
 def close(what: str, out: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     """Fail unless ``out`` is within ``tol`` of ``want`` everywhere; returns
     the max absolute difference."""
@@ -1444,10 +1520,12 @@ def close(what: str, out: torch.Tensor, want: torch.Tensor, tol: float) -> float
 
 
 def lm_projections(cfg) -> list[tuple[int, int, int]]:
-    """(K, N, launches per layer) of one dense layer's packed projections."""
+    """(K, N, launches per layer) of one attention block's packed projections:
+    q, k and v, o, the FFN's up (gate and up for SwiGLU) and down."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-    return [(d, q, 1), (d, kv, 2), (q, d, 1), (d, cfg.d_ff, 2), (cfg.d_ff, d, 1)]
+    up = 2 if cfg.act == "swiglu" else 1
+    return [(d, q, 1), (d, kv, 2), (q, d, 1), (d, cfg.d_ff, up), (cfg.d_ff, d, 1)]
 
 
 def graph_of(fn):
@@ -1610,10 +1688,13 @@ def check_bnn_matmul_mxu(dev, cfg, gen) -> dict:
 
 def check_flash(dev, cfg, gen) -> dict:
     """Flash attention against its plain version: the scoring path's shape
-    (BH = 32 heads, S = 2048, D = 96, bf16, causal; the tma route) and
-    smaller bf16 cases (full attention, ragged S, and D = 20 on the wmma
-    route) within 3e-2, float32 causal and full cases within 2e-3; each
-    asserts its route.  Timed at the first, in turns with
+    (BH = 32 heads, S = 2048, D = 96, bf16, causal; the tma route), smaller
+    bf16 cases (full attention, ragged S, and D = 20 on the wmma route), and
+    the scoring layers of hubert-xlarge (16 heads, S = 2048, D = 80, full),
+    zamba2-1.2b (32 heads, D = 64, causal) and internvl2-2b (16 heads,
+    D = 128, causal), bf16 within ``close_attention``'s bound; float32
+    causal and full cases within 1e-5; each asserts its route.  Timed at
+    the first and at hubert's layer, each in turns with
     ``scaled_dot_product_attention``."""
     fa, plain = flash_attention.flash_attention, flash_attention.flash_attention_plain
     bh, s, d = cfg.num_heads, LM_SCORE_LEN, cfg.resolved_head_dim
@@ -1621,29 +1702,45 @@ def check_flash(dev, cfg, gen) -> dict:
     def qkv(shape, dtype):
         return (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
 
+    def scoring_layer(arch):
+        c = get_config(arch)
+        return c.num_heads, LM_SCORE_LEN, c.resolved_head_dim
+
     q, k, v = qkv((bh, s, d), torch.bfloat16)
-    err = close(f"flash_attention ({bh}, {s}, {d}) bf16 causal (tma)",
-                routed(fa, "tma", lambda: fa(q, k, v)), plain(q, k, v), 3e-2)
+    err = close_attention(f"flash_attention ({bh}, {s}, {d}) bf16 causal (tma)",
+                          routed(fa, "tma", lambda: fa(q, k, v)), plain(q, k, v), q, k, v, True)
+    full_d80 = scoring_layer(AUDIO_ARCH)   # hubert's scoring layer
     for shape, causal, path in (((8, 1024, d), False, "tma"), ((4, 300, d), True, "tma"),
-                                ((4, 300, 20), True, "wmma")):
+                                ((4, 300, 20), True, "wmma"), (full_d80, False, "tma"),
+                                (scoring_layer(HYBRID_ARCH), True, "tma"),
+                                (scoring_layer(VLM_ARCH), True, "tma")):
         qb, kb, vb = qkv(shape, torch.bfloat16)
-        err = max(err, close(f"flash_attention {shape} bf16 causal={causal} ({path})",
-                             routed(fa, path, lambda: fa(qb, kb, vb, causal=causal)),
-                             plain(qb, kb, vb, causal=causal), 3e-2))
+        err = max(err, close_attention(f"flash_attention {shape} bf16 causal={causal} ({path})",
+                                       routed(fa, path, lambda: fa(qb, kb, vb, causal=causal)),
+                                       plain(qb, kb, vb, causal=causal), qb, kb, vb, causal))
     for causal in (True, False):
         qf, kf, vf = qkv((4, 300, d), torch.float32)
         err = max(err, close(f"flash_attention (4, 300, {d}) f32 causal={causal} (f32)",
                              routed(fa, "f32", lambda: fa(qf, kf, vf, causal=causal)),
-                             plain(qf, kf, vf, causal=causal), 2e-3))
+                             plain(qf, kf, vf, causal=causal), 1e-5))
     q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b_ms, b_by = costs.flash_attention(bh, s, d).bound_ms()
     t = in_turns({"kernel": lambda: fa(q, k, v), "library": lambda: sdpa(q4, k4, v4, is_causal=True)})
+    # hubert-xlarge's layer: full (bidirectional) attention at D = 80
+    qa, ka, va = qkv(full_d80, torch.bfloat16)
+    qa4, ka4, va4 = (x.view(1, *full_d80) for x in (qa, ka, va))
+    a_ms, a_by = costs.flash_attention(*full_d80, causal=False).bound_ms()
+    ta = in_turns({"kernel full D=80": lambda: fa(qa, ka, va, causal=False),
+                   "library full D=80": lambda: sdpa(qa4, ka4, va4)})
     return dict(source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:72",
                 max_abs_err=err, ms=t["kernel"],
                 plain_ms=time_ms(plain, q, k, v, iters=5),
-                bound_ms=b_ms, bound_by=b_by, library_ms=t["library"])
+                bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
+                full_d80_ms=ta["kernel full D=80"], full_d80_bound_ms=a_ms, full_d80_bound_by=a_by,
+                full_d80_library_ms=ta["library full D=80"],
+                full_d80_plain_ms=time_ms(lambda: plain(qa, ka, va, causal=False), iters=5))
 
 
 def drive_binary_matmul(dev, cfg, gen) -> dict:
@@ -1670,10 +1767,11 @@ def drive_binary_matmul(dev, cfg, gen) -> dict:
 
 def packed_launches(cfg) -> tuple[int, int]:
     """(``bnn_matmul_packed``, ``bnn_matmul_packed_experts``) launches one
-    layer makes in a prefill or a decode step, each after one ``bitpack``:
-    the packed GQA projections (q, k, v, o; MLA's are never packed), the
-    packed FFN (SwiGLU 3, GELU 2) or an MoE layer's shared SwiGLU, and an
-    MoE layer's three expert contractions."""
+    attention block makes in a prefill or a decode step, each after one
+    ``bitpack``: the packed GQA projections (q, k, v, o; MLA's are never
+    packed), the packed FFN (SwiGLU 3, GELU 2) or an MoE layer's shared
+    SwiGLU, and an MoE layer's three expert contractions.  (A Mamba2 layer
+    is no attention block: ``attention_blocks`` counts none in an SSM.)"""
     targets = cfg.quant.targets if cfg.quant.packed else ()
     proj = 4 if cfg.attention == "gqa" and "attn_proj" in targets else 0
     experts = 0
@@ -1685,14 +1783,69 @@ def packed_launches(cfg) -> tuple[int, int]:
     return proj, experts
 
 
+def attention_blocks(cfg) -> int:
+    """Attention blocks one prefill, decode step or forward runs, each making
+    ``packed_launches(cfg)`` packed launches (and, scoring with flash, one
+    ``flash_attention``): every layer; none in an SSM; in the hybrid one
+    application of the shared block per group of ``hybrid_period`` layers."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_period
+    return cfg.num_layers
+
+
+def call_launches(cfg) -> dict:
+    """Each kernel's launches in one prefill, decode step or forward without
+    flash (``packed_launches`` x ``attention_blocks``), zeros left out."""
+    proj, experts = packed_launches(cfg)
+    blocks = attention_blocks(cfg)
+    per_call = {"bnn_matmul_packed": proj * blocks, "bnn_matmul_packed_experts": experts * blocks,
+                "bitpack": (proj + experts) * blocks}
+    return {name: n for name, n in per_call.items() if n}
+
+
 def expected_routes(per_layer: int, cfg, decode_steps: int, sizes: list[int]) -> dict:
     """A kernel's launches by route over a serving run: ``per_layer``
-    launches a layer in each decode step (M or C of at most STREAM_MAX_M:
-    ``stream``) and each prefill of ``sizes`` rows (``stream`` up to
-    STREAM_MAX_M, else ``tiled``); every K here is a multiple of 128 bits."""
+    launches an attention block in each decode step (M or C of at most
+    STREAM_MAX_M: ``stream``) and each prefill of ``sizes`` rows (``stream``
+    up to STREAM_MAX_M, else ``tiled``); every K here is a multiple of 128
+    bits."""
     short = sum(m <= bnn_matmul.STREAM_MAX_M for m in sizes)
-    per_call = per_layer * cfg.num_layers
+    per_call = per_layer * attention_blocks(cfg)
     return {"stream": per_call * (decode_steps + short), "tiled": per_call * (len(sizes) - short)}
+
+
+def check_serving_launches(label: str, cfg, launches: dict, calls: int, decode_steps: int,
+                           sizes: list[int]) -> dict:
+    """Fail unless a serving run's launches are exactly ``calls`` calls'
+    (``call_launches``), each kernel's by route ``expected_routes``, and
+    every ``bitpack`` launch bf16 on the vec route.  Returns the routes."""
+    want = {name: n * calls for name, n in call_launches(cfg).items()}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want} ({call_launches(cfg)} a call "
+                             f"x {calls} calls; {attention_blocks(cfg)} attention blocks a call)")
+    proj, experts = packed_launches(cfg)
+    by_route = {}
+    if proj:
+        by_route["bnn_matmul_packed"] = expected_routes(proj, cfg, decode_steps, sizes)
+    if experts:
+        capacities = [capacity_of(s, cfg) for s in sizes]
+        if capacity_of(DECODE_M, cfg) > bnn_matmul.STREAM_MAX_M:
+            raise AssertionError(f"{label}: a decode step's capacity is past the stream route")
+        by_route["bnn_matmul_packed_experts"] = expected_routes(experts, cfg, decode_steps, capacities)
+    for name, want_routes in by_route.items():
+        got = dict(COUNTED[name].launches_by_route)
+        if got != want_routes:
+            raise AssertionError(f"{label}: {name} launches by route {got}, expected {want_routes}")
+    # Every bitpack launch, decode steps included, takes the bf16 activation
+    # as it comes (no cast to float32) on the vec route.
+    pack = bitpack.bitpack
+    total = want.get("bitpack", 0)
+    if pack.launches_by_dtype["bfloat16"] != total or pack.launches_by_route["vec"] != total:
+        raise AssertionError(f"{label}: bitpack launches by type {pack.launches_by_dtype}, by route "
+                             f"{pack.launches_by_route}: expected all {total} bf16 on the vec route")
+    return by_route
 
 
 @torch.inference_mode()
@@ -1700,8 +1853,9 @@ def drive_serving(dev, cfg, params, requests: int = LM_REQUESTS, label: str = LM
     """The ``Engine`` serves ``requests`` prompts of 16 to 128 tokens, 32 new
     tokens each, at DECODE_M slots.  Every packed projection and expert
     contraction launches its kernel after one ``bitpack`` (bf16 input, vec
-    route), exactly ``packed_launches`` a layer per call; every decode-step
-    launch takes the stream route, a prefill's the route its rows pick."""
+    route), exactly ``call_launches`` per call (``check_serving_launches``);
+    every decode-step launch takes the stream route, a prefill's the route
+    its rows pick."""
     rng = np.random.default_rng(SEED)
     eng = Engine(cfg, params, max_batch=DECODE_M, max_len=256, device=dev)
     lengths = [int(rng.integers(16, 129)) for _ in range(requests)]
@@ -1720,31 +1874,8 @@ def drive_serving(dev, cfg, params, requests: int = LM_REQUESTS, label: str = LM
         if len(r.output) != LM_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.output):
             raise AssertionError(f"{label} request {r.rid}: {len(r.output)} tokens, {r.output[:8]}...")
     calls = requests + eng.decode_steps  # prefills + batched decode steps
-    proj, experts = packed_launches(cfg)
-    per_call = {"bnn_matmul_packed": proj, "bnn_matmul_packed_experts": experts, "bitpack": proj + experts}
-    want = {name: n * cfg.num_layers * calls for name, n in per_call.items() if n}
-    if launches != want:
-        raise AssertionError(f"{label}: launches {launches}, expected {want} "
-                             f"({per_call} a layer x {cfg.num_layers} layers x {calls} calls)")
-    by_route = {}
-    if proj:
-        by_route["bnn_matmul_packed"] = expected_routes(proj, cfg, eng.decode_steps, lengths)
-    if experts:
-        capacities = [capacity_of(s, cfg) for s in lengths]
-        if capacity_of(DECODE_M, cfg) > bnn_matmul.STREAM_MAX_M:
-            raise AssertionError(f"{label}: a decode step's capacity is past the stream route")
-        by_route["bnn_matmul_packed_experts"] = expected_routes(experts, cfg, eng.decode_steps, capacities)
-    for name, want_routes in by_route.items():
-        got = dict(COUNTED[name].launches_by_route)
-        if got != want_routes:
-            raise AssertionError(f"{label}: {name} launches by route {got}, expected {want_routes}")
-    # Every bitpack launch, decode steps included, takes the bf16 activation
-    # as it comes (no cast to float32) on the vec route.
+    by_route = check_serving_launches(label, cfg, launches, calls, eng.decode_steps, lengths)
     pack = bitpack.bitpack
-    total = want.get("bitpack", 0)
-    if pack.launches_by_dtype["bfloat16"] != total or pack.launches_by_route["vec"] != total:
-        raise AssertionError(f"{label}: bitpack launches by type {pack.launches_by_dtype}, by route "
-                             f"{pack.launches_by_route}: expected all {total} bf16 on the vec route")
     print(f"serving path ({label}, {cfg.num_layers} layers, {cfg.dtype}, {cfg.quant.mode} on "
           f"{cfg.quant.targets}): {requests} requests of {lengths} tokens, wall {wall} s; prefill "
           f"{eng.prefill_seconds} s for {requests} prompts; decode {eng.decode_seconds} s for "
@@ -1755,36 +1886,57 @@ def drive_serving(dev, cfg, params, requests: int = LM_REQUESTS, label: str = LM
     return launches
 
 
+def lm_inputs(cfg, length: int, gen, dev) -> dict:
+    """One sequence of ``length`` positions in ``cfg.input_mode``: tokens;
+    ``num_patches`` seeded normal patch embeddings and the tokens after
+    them; or seeded normal frames."""
+    dtype = cfg.param_dtype()
+    if cfg.input_mode == "frames":
+        return {"frames": torch.randn((1, length, cfg.d_model), generator=gen, device=dev).to(dtype)}
+    patches = cfg.num_patches if cfg.input_mode == "tokens+patches" else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, length - patches), generator=gen, device=dev)}
+    if patches:
+        batch["patches"] = torch.randn((1, patches, cfg.d_model), generator=gen, device=dev).to(dtype)
+    return batch
+
+
 @torch.inference_mode()
 def score(dev, cfg, params, gen, length: int = LM_SCORE_LEN, label: str = LM_ARCH) -> dict:
-    """``forward`` with the flash kernel (one launch a layer, every one on
-    the tma route) over one ``length``-token sequence: finite logits of the
-    right shape; every packed contraction takes the tiled route."""
+    """``forward`` with the flash kernel over one ``length``-position
+    sequence (``lm_inputs``): finite logits of the right shape; exactly
+    ``call_launches`` plus one ``flash_attention`` an attention block, every
+    flash launch on the tma route, causal unless the model is encoder-only,
+    and every packed contraction on the tiled route."""
     flash_cfg = dataclasses.replace(cfg, attn_impl="pallas_flash")
-    tokens = torch.randint(0, cfg.vocab_size, (1, length), generator=gen, device=dev)
+    batch = lm_inputs(cfg, length, gen, dev)
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    logits, aux = models.forward(params, {"tokens": tokens}, flash_cfg)
+    logits, aux = models.forward(params, batch, flash_cfg)
     finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
     seconds = time.perf_counter() - t0
     launches = read_counts()
-    by_route = dict(flash_attention.flash_attention.launches_by_route)
-    if launches.get("flash_attention") != cfg.num_layers or by_route["tma"] != cfg.num_layers:
-        raise AssertionError(f"{label}: flash_attention launched {launches.get('flash_attention')} "
-                             f"times (by route {by_route}), expected one per layer "
-                             f"({cfg.num_layers}), all on the tma route")
+    blocks = attention_blocks(cfg)
+    want = dict(call_launches(cfg), **({"flash_attention": blocks} if blocks else {}))
+    if launches != want:
+        raise AssertionError(f"{label} scoring: launches {launches}, expected {want}")
+    fa = flash_attention.flash_attention
+    by_route, by_mask = dict(fa.launches_by_route), dict(fa.launches_by_mask)
+    mask = "full" if cfg.encoder_only else "causal"
+    if by_route["tma"] != blocks or by_mask[mask] != blocks:
+        raise AssertionError(f"{label}: flash_attention by route {by_route}, by mask {by_mask}: expected "
+                             f"all {blocks} on the tma route, {mask}")
     proj, experts = packed_launches(cfg)
     for name, n in (("bnn_matmul_packed", proj), ("bnn_matmul_packed_experts", experts)):
         got = dict(COUNTED[name].launches_by_route)
-        want = {"stream": 0, "tiled": n * cfg.num_layers}
-        if got != want:
-            raise AssertionError(f"{label} scoring: {name} launches by route {got}, expected {want}")
+        want_routes = {"stream": 0, "tiled": n * blocks}
+        if got != want_routes:
+            raise AssertionError(f"{label} scoring: {name} launches by route {got}, expected {want_routes}")
     if logits.shape != (1, length, cfg.vocab_size) or not finite:
         raise AssertionError(f"{label}: scoring logits {tuple(logits.shape)}, finite={finite}")
     print(f"scoring path ({label}, forward, pallas_flash at D={cfg.resolved_head_dim}, 1 x {length} "
-          f"tokens): {seconds} s, aux {float(aux)}, launches {launches}; flash_attention by route "
-          f"{by_route}")
+          f"positions {sorted(batch)}): {seconds} s, aux {float(aux)}, launches {launches}; "
+          f"flash_attention by route {by_route}, by mask {by_mask}")
     return launches
 
 
@@ -1919,8 +2071,9 @@ def free(params: dict) -> None:
 
 
 def drive_moe_mla(dev, gen) -> tuple[dict, dict]:
-    """The MoE/MLA phase (module docstring, step 10).  Returns the expert
-    kernel's launches by path, and by route in qwen3's serving run."""
+    """The MoE/MLA phase (module docstring, step 10).  Returns each run's
+    launches by path, and the expert kernel's by route in qwen3's serving
+    run."""
     by_path = {}
     t_phase = time.perf_counter()
     cfg = get_config(MOE_ARCH, quant=MOE_QUANT)
@@ -1928,9 +2081,9 @@ def drive_moe_mla(dev, gen) -> tuple[dict, dict]:
           f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, vocab {cfg.vocab_size}, {cfg.dtype}, "
           f"{cfg.quant.mode} on {cfg.quant.targets}")
     params = init_model(cfg, MOE_ARCH)
-    by_path["qwen3 serving"] = drive_serving(dev, cfg, params, LM_REQUESTS, MOE_ARCH)["bnn_matmul_packed_experts"]
+    by_path["qwen3 serving"] = drive_serving(dev, cfg, params, LM_REQUESTS, MOE_ARCH)
     serving_routes = dict(bnn_matmul.bnn_matmul_packed_experts.launches_by_route)
-    by_path["qwen3 scoring"] = score(dev, cfg, params, gen, label=MOE_ARCH)["bnn_matmul_packed_experts"]
+    by_path["qwen3 scoring"] = score(dev, cfg, params, gen, label=MOE_ARCH)
     free(params)
     print(f"{MOE_ARCH} phase: {time.perf_counter() - t_phase} s")
 
@@ -1940,8 +2093,7 @@ def drive_moe_mla(dev, gen) -> tuple[dict, dict]:
           f"{cfg.num_heads} heads, MLA kv_lora {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} experts "
           f"top-{cfg.moe.top_k} + {cfg.moe.num_shared} shared, {cfg.dtype}, {cfg.quant.mode}")
     params = init_model(cfg, MLA_ARCH)
-    by_path["deepseek serving"] = drive_serving(dev, cfg, params, SMALL_REQUESTS,
-                                                MLA_ARCH)["bnn_matmul_packed_experts"]
+    by_path["deepseek serving"] = drive_serving(dev, cfg, params, SMALL_REQUESTS, MLA_ARCH)
     free(params)
     print(f"{MLA_ARCH} phase: {time.perf_counter() - t_phase} s")
 
@@ -1952,17 +2104,189 @@ def drive_moe_mla(dev, gen) -> tuple[dict, dict]:
               f"attention {cfg.attention}, rotary share {cfg.rotary_pct}, decode carry "
               f"{cfg.decode_cache_carry}")
         params = init_model(cfg, arch)
-        drive_serving(dev, cfg, params, SMALL_REQUESTS, arch)
+        by_path[f"{arch} serving"] = drive_serving(dev, cfg, params, SMALL_REQUESTS, arch)
         if arch == "stablelm-3b":  # flash at D = 80 on the tma route
-            score(dev, cfg, params, gen, label=arch)
+            by_path[f"{arch} scoring"] = score(dev, cfg, params, gen, label=arch)
         free(params)
         print(f"{arch} phase: {time.perf_counter() - t_phase} s")
 
     t_phase = time.perf_counter()
     for arch in ASSIGNED_ARCHS:
-        serve_launch.main(["--arch", arch, "--reduced", "--device", "cuda"])
+        argv = ["--arch", arch, "--reduced", "--device", "cuda"]
+        if arch not in LAUNCH_REFUSES:
+            serve_launch.main(argv)
+            continue
+        error, match = LAUNCH_REFUSES[arch]
+        try:
+            serve_launch.main(argv)
+        except error as e:
+            if match not in str(e):
+                raise
+            print(f"launch.serve --arch {arch}: refused as the reference's launcher is, {error.__name__}: {e}")
+        else:
+            raise AssertionError(f"launch.serve --arch {arch} served; the reference's launcher refuses it")
     print(f"launch.serve --reduced, {len(ASSIGNED_ARCHS)} archs: {time.perf_counter() - t_phase} s")
     return by_path, serving_routes
+
+
+# ---------------------------------------------------------------------------
+# The SSM, hybrid, VLM and audio models
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-1.3b"
+HYBRID_ARCH = "zamba2-1.2b"
+VLM_ARCH = "internvl2-2b"
+AUDIO_ARCH = "hubert-xlarge"
+# The reference's launcher fails on these two: hubert is encoder-only (the
+# Engine refuses it) and the Engine prefills tokens without internvl2's patches.
+LAUNCH_REFUSES = {AUDIO_ARCH: (ValueError, "encoder-only"), VLM_ARCH: (KeyError, "patches")}
+CPU_CHECK_LEN = 32   # positions of the card-vs-CPU check (a VLM's patches come on top)
+
+
+@torch.inference_mode()
+def check_against_cpu(dev, cfg, label: str) -> float:
+    """The family's path on the card against the port's plain path on the
+    CPU (which the CPU tests hold against the reference): a float32
+    unquantized copy at published widths with 2 layers (the hybrid one group
+    and a one-layer tail), weights and inputs made on the CPU from a seed;
+    on the card its attention runs flash (the f32 route, causal or full as
+    the model is).  Logits within 2e-3, as ``drive_scoring`` holds flash
+    against plain attention."""
+    layers = cfg.hybrid_period + 1 if cfg.family == "hybrid" else 2
+    small = dataclasses.replace(cfg, num_layers=layers, dtype="float32", quant=QuantConfig())
+    params = models.init_params(small, SEED + 1, device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    length = CPU_CHECK_LEN + (small.num_patches if small.input_mode == "tokens+patches" else 0)
+    batch = lm_inputs(small, length, gen, "cpu")
+    want, _ = models.forward(params, batch, small)
+    got, _ = models.forward(tree.map(lambda t: t.to(dev), params), {k: v.to(dev) for k, v in batch.items()},
+                            dataclasses.replace(small, attn_impl="pallas_flash"))
+    return close(f"{label}: {layers}-layer float32 forward, card (flash) vs CPU (plain)", got.cpu(), want, 2e-3)
+
+
+PACKED_MS = ((DECODE_M, "stream"), (384, "tiled"), (LM_SCORE_LEN, "tiled"))  # decode, prompt, scoring
+
+
+def check_packed_shapes(dev, cfg, gen, label: str) -> int:
+    """``bitpack`` (bf16, vec route, planted subnormal signs) and
+    ``bnn_matmul_packed`` bit for bit against their plain versions at each
+    distinct (K, N) of the model's attention-block projections
+    (``lm_projections``) and each M of PACKED_MS on its route."""
+    fn, bp = bnn_matmul.bnn_matmul_packed, bitpack.bitpack
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    err = 0
+    for k, n in sorted({(k, n) for k, n, _ in lm_projections(cfg)}):
+        wp, _ = kops.pack_weights(torch.randn((n, k), generator=gen, device=dev))
+        for m, path in PACKED_MS:
+            x = planted((m, k), torch.bfloat16, cpu_gen, dev)
+            xp = routed(bp, "vec", lambda: bp(x))
+            err = max(err, same(f"{label}: bitpack bf16 ({m}, {k}) (vec)", xp, bitpack.pack_ge_plain(x, 0)))
+            err = max(err, same(f"{label}: bnn_matmul_packed M={m} K={k} N={n} ({path})",
+                                routed(fn, path, lambda: fn(xp, wp, k_bits=k)),
+                                ref.bnn_matmul_packed_ref(xp, wp, k)))
+    return err
+
+
+@torch.inference_mode()
+def drive_vlm_decode(dev, cfg, params, gen, label: str = VLM_ARCH) -> dict:
+    """What the ``Engine`` would do for a VLM, by hand: ``prefill`` of
+    DECODE_M prompts, each ``num_patches`` seeded normal patch embeddings and
+    16 to 128 tokens, each installed in its slot of one cache (zero-padded,
+    the index the longest prompt's); then LM_NEW_TOKENS batched
+    ``decode_step``s from position ``num_patches + S`` (the longest
+    prompt's).  Launches exactly ``call_launches`` a call, decode-step GEMMs
+    on the stream route."""
+    rng = np.random.default_rng(SEED)
+    lengths = [int(rng.integers(16, 129)) for _ in range(DECODE_M)]
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s))).to(dev) for s in lengths]
+    patches = [torch.randn((1, cfg.num_patches, cfg.d_model), generator=gen, device=dev).to(cfg.param_dtype())
+               for _ in lengths]
+    cache = models.init_cache(cfg, DECODE_M, cfg.num_patches + max(lengths) + LM_NEW_TOKENS + 1, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    last = []
+    for slot, (tokens, p) in enumerate(zip(prompts, patches)):
+        logits, pcache = models.prefill(params, {"tokens": tokens, "patches": p}, cfg)
+        for dst, src in zip(cache_tensors(cache), cache_tensors(pcache)):
+            dst[:, slot].zero_()
+            dst[:, slot, : src.shape[2]] = src[:, 0]
+        last.append(logits.argmax(-1))
+    cache = set_index(cache, cfg.num_patches + max(lengths))
+    token = torch.cat(last)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out = [token]
+    t0 = time.perf_counter()
+    for _ in range(LM_NEW_TOKENS):
+        logits, cache = models.decode_step(params, token, cache, cfg)
+        token = logits.argmax(-1)
+        out.append(token)
+    tokens_out = torch.stack(out, 1).cpu()
+    decode_s = time.perf_counter() - t0
+    launches = read_counts()
+    steps = LM_NEW_TOKENS
+    by_route = check_serving_launches(label, cfg, launches, DECODE_M + steps, steps,
+                                      [cfg.num_patches + s for s in lengths])
+    if not (bool(torch.isfinite(logits).all()) and 0 <= int(tokens_out.min())
+            and int(tokens_out.max()) < cfg.vocab_size):
+        raise AssertionError(f"{label}: decode logits finite={bool(torch.isfinite(logits).all())}, tokens "
+                             f"{tokens_out[:, :8].tolist()}")
+    print(f"VLM decode path ({label}, {cfg.num_layers} layers, {cfg.dtype}, {cfg.quant.mode}, decode carry "
+          f"{cfg.decode_cache_carry}): {DECODE_M} prompts of {cfg.num_patches} patches + {lengths} tokens, "
+          f"prefill {prefill_s} s; decode {decode_s} s for {steps} steps ({decode_s / steps * 1e3} ms/step), "
+          f"{DECODE_M * steps / decode_s} decode tokens/s; launches {launches}; by route {by_route}")
+    print(f"  sample: slot 0 -> {tokens_out[0, :8].tolist()}...")
+    return launches
+
+
+def drive_ssm_families(dev, gen) -> dict:
+    """The SSM / hybrid / VLM / audio phase (module docstring, step 11).
+    Returns each run's launches by path."""
+    by_path = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        t_phase = time.perf_counter()
+        cfg = get_config(arch, quant=MOE_QUANT)
+        print(f"{arch} at its published config: {cfg.num_layers} layers, d_model {cfg.d_model}, SSM state "
+              f"{cfg.ssm.state_dim}, {cfg.ssm.num_ssm_heads(cfg.d_model)} SSM heads of {cfg.ssm.head_dim}, "
+              f"chunk {cfg.ssm.chunk}, hybrid period {cfg.hybrid_period} ({attention_blocks(cfg)} shared-block "
+              f"applications a call), vocab {cfg.vocab_size}, {cfg.dtype}, {cfg.quant.mode} on "
+              f"{cfg.quant.targets}")
+        check_against_cpu(dev, cfg, arch)
+        if attention_blocks(cfg):
+            check_packed_shapes(dev, cfg, gen, arch)
+        params = init_model(cfg, arch)
+        short = arch.split("-")[0]
+        by_path[f"{short} serving"] = drive_serving(dev, cfg, params, LM_REQUESTS, arch)
+        by_path[f"{short} scoring"] = score(dev, cfg, params, gen, label=arch)
+        free(params)
+        print(f"{arch} phase: {time.perf_counter() - t_phase} s")
+
+    t_phase = time.perf_counter()
+    cfg = get_config(VLM_ARCH, quant=MOE_QUANT)
+    print(f"{VLM_ARCH} at its published config: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads ({cfg.num_kv_heads} KV) of {cfg.resolved_head_dim}, {cfg.num_patches} "
+          f"patches, vocab {cfg.vocab_size}, {cfg.dtype}, {cfg.quant.mode}")
+    check_against_cpu(dev, cfg, VLM_ARCH)
+    check_packed_shapes(dev, cfg, gen, VLM_ARCH)
+    params = init_model(cfg, VLM_ARCH)
+    by_path["internvl2 decode"] = drive_vlm_decode(dev, cfg, params, gen)
+    by_path["internvl2 scoring"] = score(dev, cfg, params, gen, label=VLM_ARCH)
+    free(params)
+    print(f"{VLM_ARCH} phase: {time.perf_counter() - t_phase} s")
+
+    t_phase = time.perf_counter()
+    cfg = get_config(AUDIO_ARCH, quant=MOE_QUANT)
+    print(f"{AUDIO_ARCH} at its published config: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads of {cfg.resolved_head_dim}, encoder-only, {cfg.act} FFN, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, {cfg.quant.mode}")
+    check_against_cpu(dev, cfg, AUDIO_ARCH)
+    check_packed_shapes(dev, cfg, gen, AUDIO_ARCH)
+    params = init_model(cfg, AUDIO_ARCH)
+    by_path["hubert scoring"] = score(dev, cfg, params, gen, label=AUDIO_ARCH)
+    free(params)
+    print(f"{AUDIO_ARCH} phase: {time.perf_counter() - t_phase} s")
+    return by_path
 
 
 # The keys every entry of the kernels line has, in this order; a record's
@@ -2054,8 +2378,10 @@ def main() -> int:
     lm_params = models.init_params(cfg, SEED, device=dev)
     torch.cuda.synchronize()
     print(f"init_params: {time.perf_counter() - t0} s")
-    records["bnn_matmul_packed"]["launches"] = drive_serving(dev, cfg, lm_params)["bnn_matmul_packed"]
-    records["flash_attention"]["launches"] = drive_scoring(dev, cfg, lm_params, gen)["flash_attention"]
+    lm_paths = {"phi3 serving": drive_serving(dev, cfg, lm_params),
+                "phi3 scoring": drive_scoring(dev, cfg, lm_params, gen)}
+    records["bnn_matmul_packed"]["launches"] = lm_paths["phi3 serving"]["bnn_matmul_packed"]
+    records["flash_attention"]["launches"] = lm_paths["phi3 scoring"]["flash_attention"]
     free(lm_params)
     print(f"LM phases: {time.perf_counter() - t_lm} s")
 
@@ -2065,9 +2391,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"expert kernel checks: {time.perf_counter() - t_moe} s")
     by_path, by_route = drive_moe_mla(dev, gen)
-    records["bnn_matmul_packed_experts"].update(launches=by_path["qwen3 serving"], launches_by_path=by_path,
-                                                launches_by_route=by_route)
+    lm_paths.update(by_path)
+    records["bnn_matmul_packed_experts"].update(
+        launches=by_path["qwen3 serving"]["bnn_matmul_packed_experts"], launches_by_route=by_route)
     print(f"MoE / MLA phase: {time.perf_counter() - t_moe} s")
+
+    t_ssm = time.perf_counter()
+    print("SSM / hybrid / VLM / audio phase:")
+    lm_paths.update(drive_ssm_families(dev, gen))
+    print(f"SSM / hybrid / VLM / audio phase: {time.perf_counter() - t_ssm} s")
+    # Every LM path's launches of each LM kernel; the bit-pack kernel's LM
+    # launches (its ``bitpack`` wrapper) beside its packet-path record.
+    for name in ("bnn_matmul_packed", "flash_attention", "bnn_matmul_packed_experts"):
+        records[name]["launches_by_path"] = {path: got.get(name, 0) for path, got in lm_paths.items()}
+    records["pack_bits_words"]["bitpack_launches_by_path"] = {
+        path: got.get("bitpack", 0) for path, got in lm_paths.items()}
 
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],

@@ -3,8 +3,8 @@
 One frozen dataclass tree describes an architecture; ``family`` selects the
 block wiring in ``repro_torch.models``.  The paper's technique appears as
 ``QuantConfig`` — binary (XNOR-popcount) projection layers.  The port runs
-the dense and MoE families with GQA or MLA attention so far; the SSM
-sub-config is kept so that a configuration reads the same in both packages.
+every family of the reference: dense and MoE (GQA or MLA attention), SSM,
+hybrid, VLM and audio.
 """
 from __future__ import annotations
 

@@ -63,18 +63,28 @@ def params_from_jax(
     return weights, out
 
 
+# Leaves the reference keeps float32 whatever the model's type: the packed
+# projections' ``alpha``, the MoE ``router`` and Mamba2's ``A_log``, ``D`` and
+# ``dt_bias`` (``layers/moe.py``, ``layers/mamba2.py``).
+_FLOAT32_LEAVES = ("alpha", "A_log", "D", "dt_bias")
+
+
 def lm_params_from_jax(tree: dict, cfg, *, device="cuda") -> dict:
     """Carry an LM's parameters from the reference package into the port.
 
     ``tree``: the reference's ``init_params`` pytree with every leaf as a
-    numpy array (``jax.tree.map(np.asarray, params)``), layers stacked on a
-    leading L axis.  bf16 leaves may come as float32 (exact) or as numpy's
-    bfloat16 extension type.  Returns the port's parameters: the same keys,
-    ``"layers"`` as one dict per layer, on ``device``:
+    numpy array (``jax.tree.map(np.asarray, params)``).  Its ``layers`` are
+    stacked on a leading L axis, or for the hybrid on two, (groups,
+    hybrid_period); a hybrid's ``tail`` is stacked on one axis and its
+    ``shared`` block not at all.  bf16 leaves may come as float32 (exact)
+    or as numpy's bfloat16 extension type.  Returns the port's parameters:
+    the same keys, ``"layers"`` as one dict per layer (for the hybrid, a
+    list of groups of them), ``"tail"`` as a list, on ``device``:
 
     * packed sign words (uint32) -> int32 bit views, bit for bit;
-    * ``alpha`` and the MoE ``router`` stay float32 (the reference keeps
-      them so, whatever the model's type);
+    * ``alpha``, the MoE ``router`` and Mamba2's ``A_log``, ``D`` and
+      ``dt_bias`` stay float32 (the reference keeps them so, whatever the
+      model's type);
     * every other float leaf -> ``cfg.param_dtype()``.
     """
     from repro_torch.device import resolve_device
@@ -89,17 +99,27 @@ def lm_params_from_jax(tree: dict, cfg, *, device="cuda") -> dict:
         if a.dtype.kind in "iu":
             return torch.from_numpy(a.astype(np.int32)).to(dev)
         t = torch.from_numpy(a.astype(np.float32))
-        return t.to(dev, torch.float32 if path[-1] == "alpha" or "router" in path else dtype)
+        keep = path[-1] in _FLOAT32_LEAVES or "router" in path
+        return t.to(dev, torch.float32 if keep else dtype)
 
     def walk(node, path=()):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         return leaf(path, node)
 
-    out = {k: walk(v, (k,)) for k, v in tree.items() if k != "layers"}
-    stacked = walk(tree["layers"], ("layers",))
-    n_layers = len(next(iter(_leaves(stacked))))
-    out["layers"] = [_index(stacked, i) for i in range(n_layers)]
+    def unstack(node) -> list:
+        return [_index(node, i) for i in range(len(next(iter(_leaves(node)))))]
+
+    out = {}
+    for key, value in tree.items():
+        node = walk(value, (key,))
+        if key == "tail":
+            node = unstack(node)
+        elif key == "layers":
+            node = unstack(node)
+            if cfg.family == "hybrid":
+                node = [unstack(group) for group in node]
+        out[key] = node
     return out
 
 

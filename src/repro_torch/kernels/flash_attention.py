@@ -18,8 +18,9 @@ the operands' alignment:
 * ``"wmma"``: any other bf16 input (D % 8 != 0, or a misaligned operand);
 * ``"f32"``: float32, on the CUDA cores.
 
-Each launch is counted in ``flash_attention.launches`` and, by route, in
-``flash_attention.launches_by_route``.
+Each launch is counted in ``flash_attention.launches``, by route in
+``flash_attention.launches_by_route`` and by mask (``"causal"`` or
+``"full"``) in ``flash_attention.launches_by_mask``.
 """
 from __future__ import annotations
 
@@ -113,8 +114,10 @@ def flash_attention(
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_by_route[path] += 1
+    flash_attention.launches_by_mask["causal" if causal else "full"] += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(_ENTRY, 0)
+flash_attention.launches_by_mask = {"causal": 0, "full": 0}

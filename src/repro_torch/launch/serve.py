@@ -6,7 +6,11 @@ Usage:
 
 ``--device`` defaults to ``cuda``.  ``--reduced`` serves :func:`small` of
 the architecture: the port's copy of ``examples/serve_batched.py::small``
-(which imports JAX), every family's branch kept.
+(which imports JAX), every family's branch kept.  As the reference's
+launcher, it serves eight of the ten archs and fails on two: hubert-xlarge
+is encoder-only (the ``Engine`` raises ``ValueError``), and the ``Engine``
+prefills internvl2-2b's tokens without the patch embeddings its
+``tokens+patches`` input needs (``KeyError: 'patches'``).
 """
 from __future__ import annotations
 

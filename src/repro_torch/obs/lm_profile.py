@@ -1,9 +1,9 @@
 """Where an LM decode step's time goes, on one GPU: a ``torch.profiler`` trace.
 
-Builds ``--arch`` (default phi3-mini-3.8b; any ported arch, such as
-qwen3-moe-30b-a3b) at its published config (weights from a seed, bf16,
-``bnn_packed`` projections and experts), fills the 4 slots of an ``Engine`` with
-128-token prompts, takes 3 warm-up decode steps, then traces ``--steps``
+Builds ``--arch`` (default phi3-mini-3.8b; any arch the ``Engine`` serves,
+such as qwen3-moe-30b-a3b, mamba2-1.3b or zamba2-1.2b) at its published
+config (weights from a seed, bf16, ``bnn_packed`` projections and experts),
+fills the 4 slots of an ``Engine`` with 128-token prompts, takes 3 warm-up decode steps, then traces ``--steps``
 decode steps and prints, per step:
 
 * the host wall time (each step ends with its tokens on the host);

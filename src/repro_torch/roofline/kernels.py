@@ -111,7 +111,9 @@ def bnn_matmul_mxu(m: int, k: int, n: int) -> Cost:
     return Cost((m * k + k * n) * 2 + m * n * 4, 2 * m * n * k, hw.BF16_TENSOR_FLOPS)
 
 
-def flash_attention(bh: int, s: int, d: int) -> Cost:
-    """Causal attention over (bh, s, d) bf16: q, k, v read and o written;
-    the causal half of the 4 s^2 d operations of both products."""
-    return Cost(4 * bh * s * d * 2, 2 * bh * s * s * d, hw.BF16_TENSOR_FLOPS)
+def flash_attention(bh: int, s: int, d: int, causal: bool = True) -> Cost:
+    """Attention over (bh, s, d) bf16: q, k, v read and o written; the 4
+    s^2 d operations of both products, the causal half of them when
+    ``causal``."""
+    ops = 4 * bh * s * s * d
+    return Cost(4 * bh * s * d * 2, ops // 2 if causal else ops, hw.BF16_TENSOR_FLOPS)

@@ -53,7 +53,7 @@ from repro_torch.dataplane.lowering import LoweredProgram, lower_program
 from repro_torch.dataplane.plan import ExecutionPlan
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, init_cache, prefill
-from repro_torch.models.model import cache_fields
+from repro_torch.models.model import cache_tensors, set_index
 from repro_torch.obs.slo import BreachEvent, SloSpec, SloStatus, SloTracker
 from repro_torch.obs.windows import WindowedHistogram, WindowedRate
 
@@ -149,15 +149,17 @@ class Engine:
             self.last_token[slot] = tok
 
     def _install(self, slot: int, pcache, prompt_len: int) -> None:
-        """Copy a prefilled (batch=1, len=S) cache (a ``KVCache``'s k and v,
-        an ``MlaCache``'s c_kv and k_rope) into the slot axis of the batched
-        cache, zero-filling the sequence axis up to max_len."""
-        for name in cache_fields(pcache):
-            dst, src = getattr(self.cache, name), getattr(pcache, name)
+        """Copy a prefilled (batch=1) cache into the slot axis of the
+        batched cache, every tensor of it (``cache_tensors``: a
+        ``KVCache``'s k and v, an ``MlaCache``'s c_kv and k_rope, an
+        ``SsmCache``'s state and window tails, both of a ``HybridCache``).
+        A sequence axis (axis 2) is zero-filled past the prompt up to
+        max_len; an SSM tensor has none and is copied whole."""
+        for dst, src in zip(cache_tensors(self.cache), cache_tensors(pcache)):
             dst[:, slot].zero_()
             dst[:, slot, : src.shape[2]] = src[:, 0].to(dst.dtype)
         # one index for every slot: the largest position (see module doc)
-        self.cache = _set_index(self.cache, int(max(self.slot_pos.max(), prompt_len)))
+        self.cache = set_index(self.cache, int(max(self.slot_pos.max(), prompt_len)))
 
     @torch.inference_mode()
     def _step(self) -> None:
@@ -181,10 +183,6 @@ class Engine:
                 req.done = True
                 self.completed.append(req)
                 self.slots[slot] = None
-
-
-def _set_index(cache, value: int):
-    return dataclasses.replace(cache, index=int(value))
 
 
 # ---------------------------------------------------------------------------

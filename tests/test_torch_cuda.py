@@ -1210,3 +1210,157 @@ def test_moe_engine_step_on_cuda_launches_and_matches_cpu(cuda):
     assert experts.launches_by_route["stream"] - before[1]["stream"] == 3 * cfg.num_layers
     assert packed.launches - before[2] == 4 * cfg.num_layers
     assert pack.launches - before[3] == 7 * cfg.num_layers
+
+
+# -- the SSM, hybrid, VLM and audio families on the card ------------------------------
+
+def _tiny_family(arch, dtype="float32"):
+    """A tiny packed ``arch`` of width 128 (4 words a row: the stream route's
+    shapes), head dim 32; mamba2 two layers, zamba2 five at period 2 (two
+    shared-block applications and a tail), internvl2 with 8 patches."""
+    import dataclasses
+
+    kw = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, head_dim=32, d_ff=128,
+              vocab_size=97, attn_q_chunk=16, init_std=0.5, dtype=dtype,
+              quant=QuantConfig(mode="bnn_packed", targets=("ffn", "attn_proj", "moe")))
+    cfg = get_config(arch)
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, state_dim=16, head_dim=32, chunk=16)
+    if cfg.family == "hybrid":
+        kw.update(num_layers=5, hybrid_period=2)
+    if cfg.family == "vlm":
+        kw["num_patches"] = 8
+    return get_config(arch, **kw)
+
+
+def _family_batch(cfg, device, s=12, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.input_mode == "frames":
+        batch = {"frames": torch.randn((2, s, cfg.d_model), generator=gen).to(cfg.param_dtype())}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, s), generator=gen)}
+        if cfg.input_mode == "tokens+patches":
+            batch["patches"] = torch.randn((2, cfg.num_patches, cfg.d_model), generator=gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _packed_per_call(cfg):
+    """Packed projection launches (each after one ``bitpack``) one call
+    makes: 7 per attention block with a SwiGLU FFN, 6 with a GELU one; one
+    block a layer, none in an SSM, one per group of ``hybrid_period`` in
+    the hybrid."""
+    blocks = {"ssm": 0, "hybrid": cfg.num_layers // max(cfg.hybrid_period, 1)}.get(cfg.family, cfg.num_layers)
+    return blocks * (4 + (3 if cfg.act == "swiglu" else 2))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b", "internvl2-2b", "hubert-xlarge"])
+def test_family_forward_on_cuda_matches_cpu(cuda, arch):
+    """float32 logits on the card within 1e-4 of the CPU's largest magnitude
+    (the packed GEMMs are exact; float32 products sum in another order), and
+    one forward's launches exactly the counted ones, on the tiled route."""
+    from repro_torch import models
+
+    cfg = _tiny_family(arch)
+    params = models.init_params(cfg, 1, device="cpu")
+    want, _ = models.forward(params, _family_batch(cfg, "cpu"), cfg)
+    packed, pack = bnn_matmul.bnn_matmul_packed, bitpack.bitpack
+    before = (packed.launches, packed.launches_by_route["tiled"], pack.launches)
+    with torch.inference_mode():
+        got, _ = models.forward(_to(params, cuda), _family_batch(cfg, cuda), cfg)
+    torch.cuda.synchronize()
+    n = _packed_per_call(cfg)
+    assert (packed.launches, packed.launches_by_route["tiled"], pack.launches) == tuple(b + n for b in before)
+    assert (n == 0) == (arch == "mamba2-1.3b")
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_family_engine_on_cuda_serves_cpu_tokens(cuda, arch):
+    """The ``Engine`` serves the CPU's greedy tokens on the card (an SSM
+    cache copied whole into its slot, a hybrid's KV slots beside it); one
+    decode step of 2 slots launches exactly the counted packed projections,
+    every one on the stream route (none for mamba2)."""
+    from repro_torch import models
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = _tiny_family(arch)
+    params = models.init_params(cfg, 1, device="cpu")
+    outs = []
+    for dev, p in (("cpu", params), (cuda, _to(params, cuda))):
+        eng = Engine(cfg, p, max_batch=2, max_len=64, device=dev)
+        for i, n in enumerate((4, 2, 9)):
+            eng.submit(Request(rid=i, prompt=(np.arange(n) * 7 + i) % 90, max_new_tokens=3 + 2 * i))
+        outs.append([(r.rid, r.output) for r in eng.run()])
+    assert outs[0] == outs[1]
+
+    eng = Engine(cfg, _to(params, cuda), max_batch=2, max_len=64, device=cuda)
+    eng.submit(Request(rid=0, prompt=np.arange(5) % 90, max_new_tokens=4))
+    eng._admit()
+    packed, pack = bnn_matmul.bnn_matmul_packed, bitpack.bitpack
+    before = (packed.launches, packed.launches_by_route["stream"], pack.launches)
+    eng._step()
+    torch.cuda.synchronize()
+    n = _packed_per_call(cfg)
+    assert (packed.launches, packed.launches_by_route["stream"], pack.launches) == tuple(b + n for b in before)
+
+
+def test_vlm_prefill_and_decode_on_cuda_match_cpu(cuda):
+    """internvl2's prefill over 8 patches + 6 tokens and three decode steps
+    without the decode carry: logits within 1e-4 of the CPU's scale, equal
+    greedy tokens, 7 packed launches a layer a call."""
+    from repro_torch import models
+
+    cfg = _tiny_family("internvl2-2b")
+    assert not cfg.decode_cache_carry
+    params = models.init_params(cfg, 1, device="cpu")
+    runs = []
+    for dev, p in (("cpu", params), (cuda, _to(params, cuda))):
+        batch = _family_batch(cfg, dev, s=6)
+        packed = bnn_matmul.bnn_matmul_packed
+        before = packed.launches
+        with torch.inference_mode():
+            logits, pc = models.prefill(p, batch, cfg)
+            cache = models.init_cache(cfg, 2, 24, device=dev)
+            for dst, src in zip(models.model.cache_tensors(cache), models.model.cache_tensors(pc)):
+                dst[:, :, : src.shape[2]] = src
+            cache = models.model.set_index(cache, pc.index)
+            steps = [logits]
+            for _ in range(3):
+                logits, cache = models.decode_step(p, logits.argmax(-1), cache, cfg)
+                steps.append(logits)
+        launched = packed.launches - before
+        runs.append(([t.cpu() for t in steps], launched))
+    (want, cpu_launched), (got, launched) = runs
+    assert cpu_launched == 0 and launched == 4 * _packed_per_call(cfg)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+def test_hubert_flash_is_full_attention_on_tma(cuda):
+    """bf16 hubert with flash: one ``flash_attention`` launch a layer, every
+    one full (non-causal) on the tma route, 6 packed launches a layer on the
+    tiled route; float32, flash's f32 route on the card within 2e-3 of plain
+    attention on the CPU."""
+    import dataclasses
+
+    from repro_torch import models
+
+    cfg = dataclasses.replace(_tiny_family("hubert-xlarge", "bfloat16"), attn_impl="pallas_flash")
+    fa, packed = flash_attention.flash_attention, bnn_matmul.bnn_matmul_packed
+    before = (dict(fa.launches_by_route), dict(fa.launches_by_mask), packed.launches_by_route["tiled"])
+    with torch.inference_mode():
+        logits, _ = models.forward(models.init_params(cfg, 1, device=cuda), _family_batch(cfg, cuda, s=40), cfg)
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    assert {p: fa.launches_by_route[p] - before[0][p] for p in before[0]} == {"tma": layers, "wmma": 0, "f32": 0}
+    assert {m: fa.launches_by_mask[m] - before[1][m] for m in before[1]} == {"causal": 0, "full": layers}
+    assert packed.launches_by_route["tiled"] - before[2] == 6 * layers
+    assert bool(torch.isfinite(logits).all())
+
+    f32 = dataclasses.replace(cfg, dtype="float32", quant=QuantConfig())
+    params = models.init_params(f32, 2, device="cpu")
+    want, _ = models.forward(params, _family_batch(f32, "cpu", s=40), dataclasses.replace(f32, attn_impl="xla"))
+    got, _ = models.forward(_to(params, cuda), _family_batch(f32, cuda, s=40), f32)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-3)

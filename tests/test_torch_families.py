@@ -50,7 +50,7 @@ def _cache_arrays(cache):
 def test_configs_are_the_reference_configs():
     from repro.configs import get_config as jget
 
-    assert tbase.list_archs() == sorted(ARCHS + ["phi3-mini-3.8b"])
+    assert set(ARCHS + ["phi3-mini-3.8b"]) <= set(tbase.list_archs())
     for arch in ARCHS:
         want, got = jget(arch), tbase.get_config(arch)
         for f in dataclasses.fields(want):

@@ -351,16 +351,24 @@ def test_flash_cannot_seed_a_cache(model):
 
 
 def test_unported_families_and_missing_card_raise():
+    """Every family of the reference is ported (``list_archs`` holds all
+    ten archs); a family or an attention that the reference lacks either
+    raises ``ValueError``, and the entry points raise without a card
+    unless they are asked for the CPU."""
     _, tcfg = _configs()
-    for family, item in (("ssm", 16), ("hybrid", 16), ("vlm", 17), ("audio", 17)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-            tm.init_params(dataclasses.replace(tcfg, family=family), device="cpu")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-            tm.init_cache(dataclasses.replace(tcfg, family=family), 1, 8, device="cpu")
+    for bad in (dict(family="diffusion"), dict(attention="none"),
+                dict(family="hybrid", attention="mla", hybrid_period=2)):
+        with pytest.raises(ValueError):
+            tm.init_params(dataclasses.replace(tcfg, **bad), device="cpu")
+        with pytest.raises(ValueError):
+            tm.init_cache(dataclasses.replace(tcfg, **bad), 1, 8, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tm.init_params(tcfg)
         with pytest.raises(RuntimeError, match="no CUDA device"):
+            tm.init_cache(tcfg, 1, 8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             tengine.Engine(tcfg, {})
-    assert tbase.list_archs() == ["chatglm3-6b", "deepseek-v2-236b", "minicpm3-4b",
-                                  "phi3-mini-3.8b", "qwen3-moe-30b-a3b", "stablelm-3b"]
+    assert tbase.list_archs() == ["chatglm3-6b", "deepseek-v2-236b", "hubert-xlarge", "internvl2-2b",
+                                  "mamba2-1.3b", "minicpm3-4b", "phi3-mini-3.8b", "qwen3-moe-30b-a3b",
+                                  "stablelm-3b", "zamba2-1.2b"]

@@ -38,7 +38,7 @@ def port_config(jcfg, **kw):
     quantization rebuilt from the port's schema)."""
     fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)
               if f.name not in ("name", "quant", "mla", "moe", "ssm")}
-    for name, cls in (("moe", tbase.MoeConfig), ("mla", tbase.MlaConfig)):
+    for name, cls in (("moe", tbase.MoeConfig), ("mla", tbase.MlaConfig), ("ssm", tbase.SsmConfig)):
         sub = getattr(jcfg, name)
         if sub is not None:
             fields[name] = cls(**dataclasses.asdict(sub))

@@ -86,6 +86,10 @@ def test_kernel_costs_reproduce_the_recorded_bounds():
         0.004381191641791045, "bytes")
     assert rk.bnn_matmul_mxu(2048, 3072, 8192).bound_ms() == (0.10422569777957533, "operations")
     assert rk.flash_attention(32, 2048, 96).bound_ms() == (0.026056424444893832, "operations")
+    # hubert-xlarge's scoring layer: 16 heads x 80, full (bidirectional)
+    # attention counts both products over every pair, twice the causal half
+    assert rk.flash_attention(16, 2048, 80, causal=False).bound_ms() == (0.021713687037411528, "operations")
+    assert rk.flash_attention(16, 2048, 80, causal=False).ops == 2 * rk.flash_attention(16, 2048, 80).ops
     with pytest.raises(ValueError, match="rates"):
         rk.packed_layer(1, 1, 1) + rk.bnn_matmul_packed(1, 1, 1)
 
