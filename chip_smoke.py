@@ -191,7 +191,26 @@ What it does, in order:
       launches a layer (GELU FFN 2, attention 4);
    every run's launches exact (``call_launches``), every decode-step GEMM on
    the stream route, every scoring GEMM tiled;
-12. prints one JSON line of per-kernel numbers, then the status line.  The
+12. trains the LMs (``drive_training``; every run launches no kernel: the
+   training forward is the plain path, as the reference's reaches no
+   Pallas kernel):
+   a. phi3-mini-3.8b at published widths and all 32 layers, bf16,
+      ``bnn_weight_only`` on ``ffn`` and ``attn_proj`` (latent weights,
+      STE), remat on, ``AdamW(lr=1e-3)`` with its float32 master, stepping
+      in place (``AdamW.update_``): ``make_train_step`` (microbatches 1) on
+      ``SyntheticTokens(seed=0)`` batches of 8 x 128, one warm-up and 4
+      timed steps; prints each step's loss and grad norm, s/step, tokens/s,
+      resident and peak GB; loss and grad norm finite, grad norm > 0, every
+      master leaf and the bf16 parameters moved;
+   b. a 2-layer float32 copy of that step held against the CPU
+      (``check_training_against_cpu``: loss, grad norm and every updated
+      parameter within 2e-3);
+   c. ``repro_torch.launch.train.main`` at ``--reduced`` on the card: phi3
+      for 30 steps with microbatches 2, ``--compression sign`` and a failure
+      injected at step 15 (one recovery, final step 30, the loss falls),
+      then qwen3-moe-30b-a3b (the MoE aux loss) and minicpm3-4b (MLA) for 4
+      steps each, losses finite;
+13. prints one JSON line of per-kernel numbers, then the status line.  The
    packet kernels' ``launches`` sum their ``launches_by_path`` (the fleet
    phase's runs under ``fleet``), and ``launches_by_route`` splits the same
    launches by route; the LM kernels' ``launches`` are phi3's (the expert
@@ -214,6 +233,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -251,6 +271,10 @@ from repro_torch.layers.moe import capacity_of  # noqa: E402
 from repro_torch.models.model import cache_tensors, set_index  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.train.bnn_trainer import BnnTrainConfig, BnnTrainer  # noqa: E402
+from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.optim.adamw import AdamW  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 PACKETS = 1 << 20
 CHUNK = 1 << 15
@@ -2289,6 +2313,151 @@ def drive_ssm_families(dev, gen) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Training the LMs
+# ---------------------------------------------------------------------------
+
+# launch/train.py's defaults (--batch 8 --seq 128) and --quant bnn_weight_only
+# (latent weights of ``ffn`` and ``attn_proj`` binarized with STE).
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_QUANT = QuantConfig(mode="bnn_weight_only")
+TRAIN_TIMED_STEPS = 4
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 64   # the 2-layer float32 copy held against the CPU
+TRAINER_STEPS = 30
+TRAINER_FAILURE = 15                     # restores step 10's checkpoint
+TRAINER_SHORT_STEPS = 4
+TRAINER_SHORT_ARCHS = ("qwen3-moe-30b-a3b", "minicpm3-4b")   # the MoE aux loss, MLA
+
+
+def train_steps(params, state, step, data, dev, steps: int, label: str) -> tuple:
+    """``steps`` calls of ``step`` on ``data``'s batches, each timed on the
+    host clock to its metrics' ``float()`` (which waits for the card).
+    Returns (params, state, [(seconds, metrics)])."""
+    out = []
+    for _ in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.next_batch().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        out.append((time.perf_counter() - t0, metrics))
+        print(f"  {label} step {int(state.step)}: loss {metrics['loss']} grad_norm {metrics['grad_norm']} "
+              f"{out[-1][0]} s")
+    return params, state, out
+
+
+def check_training_against_cpu(dev, cfg) -> float:
+    """One ``make_train_step`` step of a 2-layer float32 copy of ``cfg`` at
+    published widths on the card against the CPU (weights and a
+    TRAIN_CPU_BATCH x TRAIN_CPU_SEQ batch from a seed): loss and grad norm
+    within 2e-3 of their size, every updated parameter within 2e-3 (AdamW
+    moves an element by about lr = 1e-3 whatever its gradient's size, so a
+    gradient that rounds to the other sign moves it up to 2e-3 the other
+    way); prints how many elements differ by more than 1e-6 and fails if
+    more than 1e-4 of them do."""
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    params = models.init_params(small, SEED + 2, device="cpu")
+    batch = SyntheticTokens(small, global_batch=TRAIN_CPU_BATCH, seq_len=TRAIN_CPU_SEQ, seed=SEED + 2).next_batch()
+    opt = AdamW(lr=1e-3)
+    step = make_train_step(small, opt)
+    on_card = tree.map(lambda t: t.to(dev, copy=True), params)
+    got_p, _, got = step(on_card, opt.init(on_card), {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    want_p, _, want = step(params, opt.init(params), {k: torch.from_numpy(v) for k, v in batch.items()})
+    for key in ("loss", "grad_norm"):
+        g, w = float(got[key]), float(want[key])
+        if not abs(g - w) <= 2e-3 * max(1.0, abs(w)):
+            raise AssertionError(f"2-layer float32 train step: {key} {g} on the card, {w} on the CPU")
+    worst, apart, total = 0.0, 0, 0
+    for g, w in zip(tree.leaves(got_p), tree.leaves(want_p), strict=True):
+        diff = (g.cpu() - w).abs()
+        worst = max(worst, float(diff.max()))
+        apart += int((diff > 1e-6).sum())
+        total += w.numel()
+    if not (worst <= 2e-3 and apart <= 1e-4 * total):
+        raise AssertionError(f"2-layer float32 train step: parameters apart by up to {worst} (limit 2e-3), "
+                             f"{apart} of {total} by more than 1e-6")
+    print(f"  2-layer float32 train step, card vs CPU ({TRAIN_CPU_BATCH} x {TRAIN_CPU_SEQ} tokens): loss "
+          f"{float(got['loss'])} vs {float(want['loss'])}, grad_norm {float(got['grad_norm'])} vs "
+          f"{float(want['grad_norm'])}; parameters within {worst}, {apart} of {total} elements apart by "
+          f"more than 1e-6")
+    return worst
+
+
+def drive_training(dev) -> dict:
+    """The training phase (module docstring, step 12).  Returns each run's
+    launches by path (none may launch a kernel)."""
+    by_path = {}
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH, quant=TRAIN_QUANT)
+    print(f"{LM_ARCH} training at published widths: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, {cfg.quant.mode} on {cfg.quant.targets}, remat {cfg.remat}, "
+          f"attention {cfg.attn_impl}; AdamW(lr=1e-3) with a float32 master, microbatches 1, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}")
+    params = init_model(cfg, LM_ARCH)
+    opt = AdamW(lr=1e-3)
+    state = opt.init(params)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 1e9
+    print(f"  {n_params} parameters; params + AdamW state {resident} GB resident")
+    before = [(t.flatten()[:4096].clone(), m.flatten()[:4096].clone())
+              for t, m in zip(tree.leaves(params), tree.leaves(state.master))]
+    data = SyntheticTokens(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
+    step = make_train_step(cfg, opt, microbatches=1)
+    zero_counts()
+    params, state, runs = train_steps(params, state, step, data, dev, 1 + TRAIN_TIMED_STEPS, "phi3")
+    by_path["phi3 training"] = read_counts()
+    if by_path["phi3 training"]:
+        raise AssertionError(f"phi3 training launched kernels: {by_path['phi3 training']}")
+    for _, metrics in runs:
+        if not (np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"]) and metrics["grad_norm"] > 0):
+            raise AssertionError(f"phi3 training: loss {metrics['loss']}, grad_norm {metrics['grad_norm']}")
+    masters_moved = sum(not torch.equal(m0, m.flatten()[:4096]) for (_, m0), m in zip(before, tree.leaves(state.master)))
+    params_moved = sum(int((p0 != p.flatten()[:4096]).sum()) for (p0, _), p in zip(before, tree.leaves(params)))
+    if masters_moved != len(before) or not params_moved:
+        raise AssertionError(f"phi3 training: {masters_moved} of {len(before)} master leaves moved, "
+                             f"{params_moved} bf16 parameter elements")
+    timed = [dt for dt, _ in runs[1:]]
+    s_step = sum(timed) / len(timed)
+    print(f"phi3 training ({cfg.num_layers} layers, {n_params} parameters): warm-up step {runs[0][0]} s; "
+          f"{s_step} s/step over {len(timed)} steps ({min(timed)} to {max(timed)}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / s_step} tokens/s; {torch.cuda.memory_allocated() / 1e9} GB resident, "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9} GB; {masters_moved} of {len(before)} master leaves "
+          f"and {params_moved} sampled bf16 parameter elements moved; launches {by_path['phi3 training']}")
+    del state, before
+    free(params)
+    check_training_against_cpu(dev, cfg)
+    print(f"{LM_ARCH} training phase: {time.perf_counter() - t_phase} s")
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        argv = ["--arch", LM_ARCH, "--reduced", "--device", "cuda", "--steps", str(TRAINER_STEPS),
+                "--microbatches", "2", "--compression", "sign", "--inject-failure", str(TRAINER_FAILURE),
+                "--ckpt-dir", os.path.join(ckpt_dir, "phi3")]
+        zero_counts()
+        out = train_launch.main(argv)
+        launches = read_counts()
+        losses = [(h["step"], h["loss"]) for h in out["history"] if "loss" in h]
+        print(f"launch.train {' '.join(argv[:-2])}: final step {out['final_step']}, recoveries "
+              f"{out['recoveries']}, stragglers {len(out['stragglers'])}, loss by step {losses}; launches {launches}")
+        if not (out["final_step"] == TRAINER_STEPS and out["recoveries"] == 1 and losses[-1][1] < losses[0][1]
+                and all(np.isfinite([l for _, l in losses]))):
+            raise AssertionError(f"launch.train --reduced {LM_ARCH}: {out}")
+        for arch in TRAINER_SHORT_ARCHS:
+            argv = ["--arch", arch, "--reduced", "--device", "cuda", "--steps", str(TRAINER_SHORT_STEPS),
+                    "--ckpt-dir", os.path.join(ckpt_dir, arch)]
+            out = train_launch.main(argv)
+            losses = [(h["step"], h["loss"], h["aux"]) for h in out["history"] if "loss" in h]
+            print(f"launch.train {' '.join(argv[:-2])}: final step {out['final_step']}, (step, loss, aux) {losses}")
+            if not (out["final_step"] == TRAINER_SHORT_STEPS and all(np.isfinite([l for _, l, _ in losses]))):
+                raise AssertionError(f"launch.train --reduced {arch}: {out}")
+        by_path["launch.train --reduced"] = read_counts()
+        if by_path["launch.train --reduced"]:
+            raise AssertionError(f"launch.train launched kernels: {by_path['launch.train --reduced']}")
+    print(f"launch.train --reduced phase: {time.perf_counter() - t_phase} s")
+    return by_path
+
+
 # The keys every entry of the kernels line has, in this order; a record's
 # other numbers follow them.
 CONTRACT_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -2400,9 +2569,14 @@ def main() -> int:
     print("SSM / hybrid / VLM / audio phase:")
     lm_paths.update(drive_ssm_families(dev, gen))
     print(f"SSM / hybrid / VLM / audio phase: {time.perf_counter() - t_ssm} s")
+
+    t_train = time.perf_counter()
+    print("training phase:")
+    lm_paths.update(drive_training(dev))
+    print(f"training phase: {time.perf_counter() - t_train} s")
     # Every LM path's launches of each LM kernel; the bit-pack kernel's LM
     # launches (its ``bitpack`` wrapper) beside its packet-path record.
-    for name in ("bnn_matmul_packed", "flash_attention", "bnn_matmul_packed_experts"):
+    for name in ("bnn_matmul_packed", "bnn_matmul_mxu", "flash_attention", "bnn_matmul_packed_experts"):
         records[name]["launches_by_path"] = {path: got.get(name, 0) for path, got in lm_paths.items()}
     records["pack_bits_words"]["bitpack_launches_by_path"] = {
         path: got.get("bitpack", 0) for path, got in lm_paths.items()}

@@ -127,14 +127,16 @@ def refuse_grad(what: str, *inputs: torch.Tensor) -> None:
     """Raise if autograd would record through a kernel launch: grad mode on
     and an input that requires grad.  A kernel called through ``ctypes``
     returns a tensor with no ``grad_fn``, so it would cut the graph without
-    a word.  The kernels have no backward yet (ROADMAP Queue 1 item 18);
-    their plain versions, which CPU tensors run, stay differentiable."""
+    a word.  The kernels have no backward: the LM trainer runs the plain
+    paths, as the reference's training forward reaches no Pallas kernel
+    (ROADMAP Queue 1 item 18).  Their plain versions, which CPU tensors
+    run, stay differentiable."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         raise RuntimeError(
             f"{what}: the CUDA kernel has no backward, so it cannot run on an input "
             "that requires grad with grad mode on (the graph would be cut). Run it "
-            "under torch.no_grad() or torch.inference_mode(); backward kernels are "
-            "ROADMAP Queue 1 item 18"
+            "under torch.no_grad() or torch.inference_mode(); training runs the plain "
+            "paths (attn_impl='xla', latent weights), ROADMAP Queue 1 item 18"
         )
 
 

@@ -1,2 +1,2 @@
 """Launchers (the reference's ``launch/``): ``serve`` stands up an LM
-``Engine`` for an architecture."""
+``Engine`` for an architecture, ``train`` trains one with the ``Trainer``."""

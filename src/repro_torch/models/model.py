@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -211,7 +212,35 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
     return (start + torch.arange(s, dtype=torch.int32, device=device)).expand(b, s)
 
 
-def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def _segments(params: dict, cfg: ModelConfig):
+    """The forward's layers in the order they run, cut where the reference's
+    scans recompute under ``remat``: one layer a segment (dense, moe, vlm,
+    audio, ssm); for the hybrid one group's SSM layers with the shared
+    block's application after them, then each tail layer.  A segment is a
+    list of (kind, layer params) as in :func:`_schedule`."""
+    if cfg.family != "hybrid":
+        yield from ([(kind, lp)] for kind, lp, _ in _schedule(params, cfg))
+        return
+    for group in params["layers"]:
+        yield [("ssm", lp) for lp in group] + [("attn", params["shared"])]
+    for lp in params.get("tail", ()):
+        yield [("ssm", lp)]
+
+
+def _run_segment(segment: list, h: torch.Tensor, cfg: ModelConfig, positions, causal: bool):
+    """A segment's layers over ``h``: (h, the sum of their aux losses)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for kind, lp in segment:
+        if kind == "ssm":
+            h, _ = _ssm_block(lp, h, cfg, None, None)
+        else:
+            h, _, a = _attn_block(lp, h, cfg, positions, None, None, causal)
+            aux = aux + a
+    return h, aux
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (train / eval / scoring).
 
     batch: {"tokens": (B, S)} (+ "patches" (B, num_patches, d), or
@@ -222,21 +251,30 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
     Differentiable, as the reference's training forward is: gradients reach
     every parameter that requires them, through ``ste_sign`` in the
     ``bnn_weight_only``/``bnn_xnor`` modes.  On the CPU that is the plain
-    PyTorch path; a CUDA kernel has no backward yet, so on a card a kernel
-    reached under grad raises (ROADMAP Queue 1 item 18).  Scoring callers
-    run it under ``torch.inference_mode()``.
+    PyTorch path; a CUDA kernel has no backward, so on a card a kernel
+    reached under grad raises (train with ``attn_impl="xla"`` and latent
+    weights, as the reference does).  Scoring callers run it under
+    ``torch.inference_mode()``.
+
+    With ``remat`` and ``cfg.remat`` set and grad mode on, each segment
+    (:func:`_segments`: a layer, or a hybrid group with its shared block)
+    runs under ``torch.utils.checkpoint``, as the reference's scans run
+    under ``jax.checkpoint``: only its input is kept, and the backward
+    recomputes it.  The gradients are the same bits either way.
     """
     _check_family(cfg)
     h = _embed_inputs(params, batch, cfg)
     b, s, _ = h.shape
     positions = _positions(b, s, 0, h.device)
+    causal = not cfg.encoder_only
+    recompute = remat and cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for kind, lp, _ in _schedule(params, cfg):
-        if kind == "ssm":
-            h, _ = _ssm_block(lp, h, cfg, None, None)
+    for segment in _segments(params, cfg):
+        if recompute:
+            h, a = checkpoint(_run_segment, segment, h, cfg, positions, causal, use_reentrant=False)
         else:
-            h, _, a = _attn_block(lp, h, cfg, positions, None, None, not cfg.encoder_only)
-            aux = aux + a
+            h, a = _run_segment(segment, h, cfg, positions, causal)
+        aux = aux + a
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return unembed(params["embed"], h), aux
 

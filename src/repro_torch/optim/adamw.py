@@ -10,6 +10,8 @@ state is not the reference's.  Here the state is a value
 parameter tree (lists and dicts of tensors), and :meth:`AdamW.update`
 returns new parameters and a new state without touching its inputs, so a
 checkpoint of the state lines up with the reference's leaf for leaf.
+:meth:`AdamW.update_` writes the same results over its inputs, leaf by
+leaf (the LM trainer's step).
 """
 from __future__ import annotations
 
@@ -56,9 +58,8 @@ class AdamW:
             return self.lr(step)
         return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
 
-    @torch.no_grad()
-    def update(self, grads: Any, state: AdamWState, params: Any):
-        """Returns (new_params, new_state, metrics)."""
+    def _coefficients(self, grads: Any, state: AdamWState):
+        """The step's shared numbers: (grad norm, clip scale, step, lr, b1c, b2c)."""
         gnorm = global_norm(grads)
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-12), max=1.0)
         step = state.step + 1
@@ -66,27 +67,54 @@ class AdamW:
         stepf = step.float()
         b1c = 1.0 - torch.pow(torch.tensor(self.b1, dtype=torch.float32, device=step.device), stepf)
         b2c = 1.0 - torch.pow(torch.tensor(self.b2, dtype=torch.float32, device=step.device), stepf)
+        return gnorm, scale, step, lr, b1c, b2c
 
-        def leaf(g, m, v, master, p):
-            g = g.float() * scale
-            mf = self.b1 * m.float() + (1 - self.b1) * g
-            vf = self.b2 * v.float() + (1 - self.b2) * torch.square(g)
-            upd = (mf / b1c) / (torch.sqrt(vf / b2c) + self.eps)
-            ref = master if self.use_master else p.float()
-            new_ref = ref - lr * (upd + self.weight_decay * ref)
-            new_master = new_ref if self.use_master else master
-            return (
-                new_ref.to(p.dtype),
-                mf.to(self.moment_dtype),
-                vf.to(self.moment_dtype),
-                new_master,
-            )
+    def _leaf(self, g, m, v, master, p, scale, lr, b1c, b2c):
+        """One leaf's update: (new param, new m, new v, new master)."""
+        g = g.float() * scale
+        mf = self.b1 * m.float() + (1 - self.b1) * g
+        vf = self.b2 * v.float() + (1 - self.b2) * torch.square(g)
+        upd = (mf / b1c) / (torch.sqrt(vf / b2c) + self.eps)
+        ref = master if self.use_master else p.float()
+        new_ref = ref - lr * (upd + self.weight_decay * ref)
+        new_master = new_ref if self.use_master else master
+        return (
+            new_ref.to(p.dtype),
+            mf.to(self.moment_dtype),
+            vf.to(self.moment_dtype),
+            new_master,
+        )
 
+    @torch.no_grad()
+    def update(self, grads: Any, state: AdamWState, params: Any):
+        """Returns (new_params, new_state, metrics)."""
+        gnorm, scale, step, lr, b1c, b2c = self._coefficients(grads, state)
         trees = (grads, state.m, state.v, state.master, params)
-        out = [leaf(*a) for a in zip(*map(tree.leaves, trees))]
+        out = [self._leaf(*a, scale, lr, b1c, b2c) for a in zip(*map(tree.leaves, trees))]
         parts = [tree.unflatten(params, [o[i] for o in out]) for i in range(4)]
         metrics = {"grad_norm": gnorm, "lr": lr}
         return parts[0], AdamWState(step, *parts[1:]), metrics
+
+    @torch.no_grad()
+    def update_(self, grads: Any, state: AdamWState, params: Any):
+        """:meth:`update` in place: each leaf's new parameter, moments and
+        master are computed by the same arithmetic and written over the old
+        tensors before the next leaf, so the step holds one leaf's
+        temporaries beside the state, never a second copy of it (the LM
+        trainer's step: a full-width model's state fills most of one card).
+        Returns (params, state with the new step, metrics), the same
+        tensors as given; the results are the bits ``update`` returns."""
+        gnorm, scale, step, lr, b1c, b2c = self._coefficients(grads, state)
+        trees = (grads, state.m, state.v, state.master, params)
+        for g, m, v, master, p in zip(*map(tree.leaves, trees)):
+            new_p, new_m, new_v, new_master = self._leaf(g, m, v, master, p, scale, lr, b1c, b2c)
+            m.copy_(new_m)
+            v.copy_(new_v)
+            if self.use_master:
+                master.copy_(new_master)
+            p.copy_(new_p)
+        metrics = {"grad_norm": gnorm, "lr": lr}
+        return params, AdamWState(step, state.m, state.v, state.master), metrics
 
 
 def global_norm(grads: Any) -> torch.Tensor:

@@ -1364,3 +1364,86 @@ def test_hubert_flash_is_full_attention_on_tma(cuda):
     want, _ = models.forward(params, _family_batch(f32, "cpu", s=40), dataclasses.replace(f32, attn_impl="xla"))
     got, _ = models.forward(_to(params, cuda), _family_batch(f32, cuda, s=40), f32)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-3)
+
+
+def _counts():
+    return {name: fn.launches for name, fn in (
+        ("bnn_matmul_packed", bnn_matmul.bnn_matmul_packed), ("bnn_matmul_mxu", bnn_matmul_mxu.bnn_matmul_mxu),
+        ("flash_attention", flash_attention.flash_attention), ("bitpack", bitpack.bitpack),
+        ("bnn_matmul_packed_experts", bnn_matmul.bnn_matmul_packed_experts))}
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen3-moe-30b-a3b", "minicpm3-4b"])
+def test_train_step_on_cuda_matches_cpu(cuda, arch):
+    """Two ``make_train_step`` steps (microbatches 2, ``bnn_weight_only``,
+    float32, remat on) on the card against the CPU: losses and grad norms
+    within 1e-4, parameters within 2 x lr (AdamW moves an element by about
+    lr whatever its gradient's size, so a gradient that rounds to the
+    other sign moves it the other way) and almost all within 1e-6; no
+    kernel launches (the training forward is the plain path)."""
+    from repro_torch import models, tree
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    import dataclasses
+
+    full = get_config(arch)
+    kw = {}
+    if full.moe is not None:
+        kw["moe"] = dataclasses.replace(full.moe, num_experts=8, top_k=2, expert_ffn_dim=32, capacity_factor=2.0)
+    if full.mla is not None:
+        kw["mla"] = dataclasses.replace(full.mla, kv_lora_rank=32, q_lora_rank=48, qk_nope_dim=16,
+                                        qk_rope_dim=8, v_head_dim=16)
+    cfg = get_config(arch, num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+                     vocab_size=97, attn_q_chunk=16, dtype="float32",
+                     quant=QuantConfig(mode="bnn_weight_only", targets=("ffn", "attn_proj", "moe")), **kw)
+    gen = torch.Generator().manual_seed(3)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (4, 16), generator=gen),
+                "labels": torch.randint(0, cfg.vocab_size, (4, 16), generator=gen)} for _ in range(2)]
+    opt = AdamW(lr=1e-3)
+    step = make_train_step(cfg, opt, microbatches=2)
+    params = models.init_params(cfg, 0, device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        p = tree.map(torch.clone, p) if dev == "cpu" else p
+        state = opt.init(p)
+        before = _counts()
+        metrics = []
+        for batch in batches:
+            p, state, m = step(p, state, _to(batch, dev))
+            metrics.append({k: float(v) for k, v in m.items()})
+        if dev != "cpu":
+            assert _counts() == before
+        runs[str(dev)] = (tree.leaves(p), metrics)
+    (want, want_m), (got, got_m) = runs["cpu"], runs[str(cuda)]
+    for g, w in zip(got_m, want_m):
+        for key in ("loss", "aux", "grad_norm"):
+            assert abs(g[key] - w[key]) <= 1e-4 * max(1.0, abs(w[key])), key
+    apart = total = 0
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=2.1e-3)
+        apart += int(((g.cpu() - w).abs() > 1e-6).sum())
+        total += w.numel()
+    assert apart <= 1e-3 * total, (apart, total)
+
+
+@pytest.mark.parametrize("dtype,use_master", [(torch.bfloat16, True), (torch.float32, True),
+                                              (torch.bfloat16, False)])
+def test_update_in_place_on_cuda_is_update(cuda, dtype, use_master):
+    """``AdamW.update_`` on the card writes the bits ``update`` returns."""
+    from repro_torch import tree
+    from repro_torch.optim.adamw import AdamW
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {"a": torch.randn((300, 70), generator=gen, device=cuda).to(dtype),
+              "b": [torch.randn(513, generator=gen, device=cuda).to(dtype)]}
+    opt = AdamW(lr=1e-2, use_master=use_master)
+    ref_p, ref_s = params, opt.init(params)
+    p, s = tree.map(torch.clone, params), opt.init(params)
+    for _ in range(3):
+        grads = tree.map(lambda t: torch.randn(t.shape, generator=gen, device=cuda).to(dtype), params)
+        ref_p, ref_s, ref_m = opt.update(grads, ref_s, ref_p)
+        p, s, m = opt.update_(grads, s, p)
+        for got, want in zip(tree.leaves((p, s, m)), tree.leaves((ref_p, ref_s, ref_m)), strict=True):
+            assert got.dtype == want.dtype and torch.equal(got, want)
