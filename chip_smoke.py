@@ -210,7 +210,25 @@ What it does, in order:
       injected at step 15 (one recovery, final step 30, the loss falls),
       then qwen3-moe-30b-a3b (the MoE aux loss) and minicpm3-4b (MLA) for 4
       steps each, losses finite;
-13. prints one JSON line of per-kernel numbers, then the status line.  The
+13. the one-card dry run (``drive_dryrun``):
+   ``repro_torch.launch.dryrun.run_cell`` on the card, each cell at the
+   batch its batch-1 measurement gives it (``dryrun.choose_batch``; one
+   warm-up, timed steps, one counted step under ``roofline.ops``):
+   phi3-mini-3.8b decode_32k (all 32 layers) and prefill_32k (4 layers)
+   with ``bnn_packed`` on ``ffn`` and ``attn_proj`` (the hillclimb's C1
+   and C2: every packed GEMM of the decode cell on the stream route, of
+   the prefill cell tiled), zamba2-1.2b long_500k uncut (a 524,288-position
+   KV cache) and hubert-xlarge train_4k at 4 layers (``frames``, the
+   encoder-only path, no kernel);
+   prints each cell's batch against its global batch, step s, the peak
+   against resident + estimate, tokens/s, the roofline bound, bottleneck,
+   floor and mfu; each cell ok, its output finite, its roofline fraction
+   and mfu in (0, 1], the counted step's launches those the count saw;
+   then ``bitpack`` and ``bnn_matmul_packed`` at the prefill cell's own M
+   (its batch x 32768 rows) for each of phi3's (K, N), the GEMM on the
+   tiled route, every row held against the plain versions
+   (``check_prefill_shapes``);
+14. prints one JSON line of per-kernel numbers, then the status line.  The
    packet kernels' ``launches`` sum their ``launches_by_path`` (the fleet
    phase's runs under ``fleet``), and ``launches_by_route`` splits the same
    launches by route; the LM kernels' ``launches`` are phi3's (the expert
@@ -275,6 +293,7 @@ from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
+from repro_torch.launch import dryrun, shapes as dryrun_shapes  # noqa: E402
 
 PACKETS = 1 << 20
 CHUNK = 1 << 15
@@ -1458,17 +1477,7 @@ def drive_multitenant(dev, records: dict) -> None:
 # The LM slice
 # ---------------------------------------------------------------------------
 
-COUNTED = {
-    "optable_run": optable_exec.optable_run,
-    "pack_bits_words": bitpack.pack_bits_words,
-    "bitpack": bitpack.bitpack,
-    "packed_layer": packed_layer.packed_layer,
-    "packed_layer_routed": packed_layer.packed_layer_routed,
-    "bnn_matmul_packed": bnn_matmul.bnn_matmul_packed,
-    "bnn_matmul_packed_experts": bnn_matmul.bnn_matmul_packed_experts,
-    "bnn_matmul_mxu": bnn_matmul_mxu.bnn_matmul_mxu,
-    "flash_attention": flash_attention.flash_attention,
-}
+COUNTED = dryrun.KERNELS   # every kernel wrapper, by name
 
 
 def zero_counts() -> None:
@@ -2458,6 +2467,111 @@ def drive_training(dev) -> dict:
     return by_path
 
 
+DRYRUN_QUANT = QuantConfig(mode="bnn_packed", targets=("ffn", "attn_proj"))   # hillclimb C1 and C2
+DRYRUN_LAYERS = 4   # the depth of the two slow cells here (the sweep runs them whole)
+# (arch, shape, config overrides, cell tag, timed steps): each at the batch
+# its batch-1 measurement gives it (``dryrun.choose_batch``).  A step's
+# time grows with depth x batch: at full depth phi3's prefill_32k takes
+# 34 s a step and hubert's train_4k 79 s at batch 64, so those two run at
+# DRYRUN_LAYERS layers.
+DRYRUN_CELLS = (
+    (LM_ARCH, "decode_32k", {"quant": DRYRUN_QUANT}, "+bnnpacked", 2),
+    (LM_ARCH, "prefill_32k", {"quant": DRYRUN_QUANT, "num_layers": DRYRUN_LAYERS}, f"+bnnpacked-{DRYRUN_LAYERS}L", 1),
+    (HYBRID_ARCH, "long_500k", {}, "", 2),
+    (AUDIO_ARCH, "train_4k", {"num_layers": DRYRUN_LAYERS}, f"-{DRYRUN_LAYERS}L", 1),
+)
+# The route every packed GEMM of a packed cell takes: a decode step's M is
+# its batch (<= 16), a prefill's M its batch x 32768 tokens.
+DRYRUN_GEMM_ROUTE = {"decode": "stream", "prefill": "tiled"}
+HELD_ROWS = 8192   # rows a chunk of the prefill-size plain versions
+
+
+def signs(words: torch.Tensor, k: int) -> torch.Tensor:
+    """(R, Kw) packed sign words -> (R, k) float32 +-1 (bit 1 is +1)."""
+    bits = bitops.unpack_bits(bitops.i32_to_u32(words), count=k)
+    return bits.to(torch.float32).mul_(2).sub_(1)
+
+
+def check_prefill_shapes(dev, cfg, gen, m: int) -> int:
+    """``bitpack`` (bf16, vec) and ``bnn_matmul_packed`` (tiled) at a
+    prefill's M = ``m`` rows of each of the model's distinct (K, N), every
+    row held bit for bit against the plain versions, in chunks of HELD_ROWS
+    rows: the bit-pack against ``pack_ge_plain``, the GEMM against a float32
+    product of the unpacked +-1 operands (exact: every partial sum is an
+    integer below 2^24)."""
+    fn, bp = bnn_matmul.bnn_matmul_packed, bitpack.bitpack
+    err = 0
+    for k, n in sorted({(k, n) for k, n, _ in lm_projections(cfg)}):
+        wp, _ = kops.pack_weights(torch.randn((n, k), generator=gen, device=dev))
+        x = torch.randn((m, k), generator=gen, device=dev)
+        x[0, 3:3 + len(PLANTED)] = torch.tensor(PLANTED, device=dev)
+        x[-1, ::3] = -1e-39
+        x = x.to(torch.bfloat16)
+        xp = routed(bp, "vec", lambda: bp(x))
+        out = routed(fn, "tiled", lambda: fn(xp, wp, k_bits=k))
+        w = signs(wp, k)
+        for r0 in range(0, m, HELD_ROWS):
+            rows = slice(r0, r0 + HELD_ROWS)
+            want_p = bitpack.pack_ge_plain(x[rows], 0)
+            if not torch.equal(xp[rows], want_p):
+                raise AssertionError(f"{LM_ARCH}: bitpack bf16 ({m}, {k}) (vec) disagrees with plain at rows "
+                                     f"{rows.start}:{rows.stop}")
+            want = (signs(xp[rows], k) @ w.T).to(torch.int32)
+            diff = int((out[rows] - want).abs().max().item())
+            if diff:
+                raise AssertionError(f"{LM_ARCH}: bnn_matmul_packed M={m} K={k} N={n} (tiled) disagrees with "
+                                     f"plain at rows {rows.start}:{rows.stop} (max diff {diff})")
+            err = max(err, diff)
+        print(f"  {LM_ARCH}: bitpack bf16 ({m}, {k}) (vec) and bnn_matmul_packed M={m} K={k} N={n} (tiled): "
+              f"every row bit-exact")
+        del x, xp, out, w
+    return err
+
+
+def drive_dryrun(dev, gen) -> dict:
+    """The dry-run phase (module docstring, step 13).  Returns each cell's
+    launches by path."""
+    by_path, prefill_m = {}, []
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape_name, overrides, tag, steps in DRYRUN_CELLS:
+            t_cell = time.perf_counter()
+            torch.cuda.empty_cache()
+            zero_counts()
+            rec = dryrun.run_cell(arch, shape_name, out, overrides, tag, device=dev, steps=steps)
+            launches = read_counts()
+            routes = dict(bnn_matmul.bnn_matmul_packed.launches_by_route)
+            label = f"dry run {arch}{tag} {shape_name}"
+            by_path[label] = launches
+            if rec["status"] != "ok":
+                raise AssertionError(f"{label}: {rec}")
+            print(f"  {dryrun.summary_line(rec)} measure={rec['measure_s']}s "
+                  f"counted-step={rec['count_s']}s launches={rec['launches']}")
+            r = rec["roofline"]
+            if not (rec["output"]["finite"] and 0 < r["roofline_fraction"] <= 1 and 0 < r["mfu"] <= 1):
+                raise AssertionError(f"{label}: output {rec['output']}, roofline fraction "
+                                     f"{r['roofline_fraction']}, mfu {r['mfu']}")
+            if rec["launches"] != rec["counts"]["kernel_launches"]:
+                raise AssertionError(f"{label}: the counted step launched {rec['launches']}, the count saw "
+                                     f"{rec['counts']['kernel_launches']}")
+            if "quant" in overrides:
+                kind = dryrun_shapes.SHAPES[shape_name].kind
+                route = DRYRUN_GEMM_ROUTE[kind]
+                if not (launches.get("bitpack") and launches.get("bnn_matmul_packed")
+                        and routes[route] == launches["bnn_matmul_packed"]):
+                    raise AssertionError(f"{label}: launches {launches}, GEMM routes {routes} (want all {route})")
+                if kind == "prefill":
+                    prefill_m.append(rec["batch"] * rec["seq_len"])
+            elif launches:
+                raise AssertionError(f"{label}: launched kernels at quant none: {launches}")
+            print(f"  {label}: {time.perf_counter() - t_cell} s, launches {launches}, GEMM routes {routes}")
+    for m in prefill_m:
+        t0 = time.perf_counter()
+        err = check_prefill_shapes(dev, get_config(LM_ARCH, quant=DRYRUN_QUANT), gen, m)
+        print(f"  the packed kernels at the prefill cell's M = {m} held against plain (max |err| {err}): "
+              f"{time.perf_counter() - t0} s")
+    return by_path
+
+
 # The keys every entry of the kernels line has, in this order; a record's
 # other numbers follow them.
 CONTRACT_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -2574,6 +2688,11 @@ def main() -> int:
     print("training phase:")
     lm_paths.update(drive_training(dev))
     print(f"training phase: {time.perf_counter() - t_train} s")
+
+    t_dry = time.perf_counter()
+    print("dry-run phase:")
+    lm_paths.update(drive_dryrun(dev, gen))
+    print(f"dry-run phase: {time.perf_counter() - t_dry} s")
     # Every LM path's launches of each LM kernel; the bit-pack kernel's LM
     # launches (its ``bitpack`` wrapper) beside its packet-path record.
     for name in ("bnn_matmul_packed", "bnn_matmul_mxu", "flash_attention", "bnn_matmul_packed_experts"):

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core import bitops
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as costs, ops as op_counts
 
 WORD = 32
 ROUTES = ("vec", "scalar")
@@ -117,6 +118,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, thr: int, path: str, wrapper) ->
         code = getattr(lib, _ENTRY[x.dtype, path])(*args, _build.stream_of(x))
     _build.check(lib, code, wrapper.__name__)
     wrapper.launches += 1
+    op_counts.charge(wrapper.__name__, costs.bitpack, m, n, x.element_size())
     wrapper.launches_by_route[path] += 1
     wrapper.launches_by_dtype[_dtype_name(x.dtype)] += 1
     return out

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import bnn_matmul_packed_experts_ref, bnn_matmul_packed_ref
+from repro_torch.roofline import kernels as costs, ops as op_counts
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -123,6 +124,7 @@ def _launch(x_packed, w_packed, out, k_bits: int, path: str) -> torch.Tensor:
         )
     _build.check(lib, code, "bnn_matmul_packed")
     bnn_matmul_packed.launches += 1
+    op_counts.charge("bnn_matmul_packed", costs.bnn_matmul_packed, m, out.shape[1], kw)
     bnn_matmul_packed.launches_by_route[path] += 1
     return out
 
@@ -176,6 +178,7 @@ def _launch_experts(x_packed, w_packed, out, k_bits: int, path: str) -> torch.Te
         )
     _build.check(lib, code, "bnn_matmul_packed_experts")
     bnn_matmul_packed_experts.launches += 1
+    op_counts.charge("bnn_matmul_packed_experts", costs.bnn_matmul_packed_experts, e, c, out.shape[2], kw)
     bnn_matmul_packed_experts.launches_by_route[path] += 1
     return out
 

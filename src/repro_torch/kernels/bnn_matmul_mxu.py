@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sign
+from repro_torch.roofline import kernels as costs, ops as op_counts
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -95,6 +96,7 @@ def bnn_matmul_mxu(x: torch.Tensor, w: torch.Tensor, *, binarize_x: bool = True)
         )
     _build.check(lib, code, "bnn_matmul_mxu")
     bnn_matmul_mxu.launches += 1
+    op_counts.charge("bnn_matmul_mxu", costs.bnn_matmul_mxu, m, k, n)
     bnn_matmul_mxu.launches_by_route[path] += 1
     return out
 

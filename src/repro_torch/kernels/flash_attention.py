@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as costs, ops as op_counts
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -113,6 +114,7 @@ def flash_attention(
         )
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
+    op_counts.charge("flash_attention", costs.flash_attention, bh, s_len, d, causal)
     flash_attention.launches_by_route[path] += 1
     flash_attention.launches_by_mask["causal" if causal else "full"] += 1
     return out

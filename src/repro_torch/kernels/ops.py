@@ -46,8 +46,12 @@ def _pack_rows(x: torch.Tensor) -> torch.Tensor:
     On a CUDA tensor this is one launch of the bit-pack kernel: ``bitpack``
     when K is a multiple of 32 (float32, bf16 and int32 as they come; other
     types widened to float32, which keeps every sign bit), else
-    ``pack_bits_words`` on the {0,1} bits.
+    ``pack_bits_words`` on the {0,1} bits.  On the meta device (the
+    shape-only parameters of ``models.init_params``) it only gives the
+    words their shape: nothing is packed and no kernel launches.
     """
+    if x.device.type == "meta":
+        return torch.empty((x.shape[0], -(-x.shape[-1] // WORD)), dtype=torch.int32, device="meta")
     if x.shape[-1] % WORD == 0 and x.shape[-1]:
         return bitpack(x if x.dtype in DTYPES else x.float())
     return pack_bits_words(bitops.sign_bit(x).to(torch.int32))

@@ -40,6 +40,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch.core import bitops
 from repro_torch.dataplane import lowering
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as costs, ops as op_counts
 
 BLOCK_THREADS = (256, 128, 64, 32)
 ROW_GROUP = 32  # rows of one opcode a thread computes before it writes any (csrc kRowGroup)
@@ -359,8 +360,15 @@ def _launch(regs: torch.Tensor, plan: Plan, records: torch.Tensor, path: str) ->
             )
     _build.check(lib, code, "optable_run")
     optable_run.launches += 1
+    op_counts.charge("optable_run", _cost, num_regs, batch, plan, records)
     optable_run.launches_by_route[path] += 1
     return out
+
+
+def _cost(num_regs: int, batch: int, plan: Plan, records) -> costs.Cost:
+    """``optable_run``'s cost; the plan's row total is summed only when a
+    count is open."""
+    return costs.optable_run(num_regs, batch, int(plan.rows.sum()), records.nbytes)
 
 
 optable_run.launches = 0

@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.core import bitops
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as costs, ops as op_counts
 
 
 _P = ctypes.c_void_p
@@ -152,6 +153,7 @@ def _launch(words, weights, mask, thresholds, out, path: str) -> torch.Tensor:
         )
     _build.check(lib, code, "packed_layer")
     packed_layer.launches += 1
+    op_counts.charge("packed_layer", costs.packed_layer, words.shape[0], n_words, n_out)
     packed_layer.launches_by_route[path] += 1
     return out
 
@@ -261,6 +263,7 @@ def _launch_routed(words, tenant_ids, weights, mask, thresholds, out, path: str)
         )
     _build.check(lib, code, "packed_layer_routed")
     packed_layer_routed.launches += 1
+    op_counts.charge("packed_layer_routed", costs.packed_layer_routed, words.shape[0], n_words, n_tenants, n_out)
     packed_layer_routed.launches_by_route[path] += 1
     return out
 

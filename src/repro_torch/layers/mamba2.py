@@ -208,7 +208,10 @@ def mamba2_apply(
             w = s_cfg.conv_width - 1
 
             def tail(arr):
-                return torch.nn.functional.pad(arr, (0, 0, max(0, w - s), 0))[:, -w:, :]
+                # A copy: the slice alone would keep the whole (B, S, C)
+                # projection alive in the cache, every layer's until the
+                # prefill stacks them.
+                return torch.nn.functional.pad(arr, (0, 0, max(0, w - s), 0))[:, -w:, :].clone()
 
             new_cache = {"h": h_final, "conv_x": tail(xp), "conv_bc": tail(bc)}
 

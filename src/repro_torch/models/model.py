@@ -121,17 +121,30 @@ def _shared_block_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> d
     }
 
 
+class _ShapeOnly(torch.Generator):
+    """A generator that names the meta device.  The layers' inits make their
+    tensors on ``generator.device``, so under it they allocate nothing and
+    draw nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     """Random parameters from ``seed`` (a ``torch.Generator`` on ``device``).
 
     Returns {"embed": {"table"}, "final_norm": {"scale"}, "layers": [...]}
     (and for the hybrid "tail" and "shared"; module docstring), keys as the
     reference's parameter paths.  Packed projections are packed on the
-    device (the bit-pack kernel on a GPU).
+    device (the bit-pack kernel on a GPU).  ``device="meta"`` gives the same
+    tree shape-only (the reference's ``jax.eval_shape(init_params)``):
+    meta tensors of the same shapes and types, packed words at their packed
+    shapes, nothing allocated, drawn or packed.
     """
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = _ShapeOnly() if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     dtype = cfg.param_dtype()
     p = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, std=cfg.init_std, dtype=dtype),

@@ -52,7 +52,8 @@ def _grads(params: dict, batch: dict, cfg: ModelConfig):
 
 def _accumulate_grads(params: dict, batch: dict, cfg: ModelConfig, microbatches: int):
     """(gradients, metrics) of the whole batch: one pass, or the mean of
-    ``microbatches`` slices of its leading axis, summed in float32."""
+    ``microbatches`` slices of its leading axis, summed in float32 into one
+    accumulator, in place."""
     if microbatches <= 1:
         return _grads(params, batch, cfg)
     b = next(iter(batch.values())).shape[0]
@@ -62,11 +63,11 @@ def _accumulate_grads(params: dict, batch: dict, cfg: ModelConfig, microbatches:
     msum = {"loss": torch.zeros((), device=dev), "aux": torch.zeros((), device=dev)}
     for i in range(microbatches):
         grads, metrics = _grads(params, {k: v[i] for k, v in slices.items()}, cfg)
-        acc = tree.map(lambda a, g: a + g.float(), acc, grads)
+        acc = tree.map(lambda a, g: a.add_(g.float()), acc, grads)
         msum = {k: msum[k] + metrics[k] for k in msum}
         del grads
     inv = 1.0 / microbatches
-    return tree.map(lambda g: g * inv, acc), {k: m * inv for k, m in msum.items()}
+    return tree.map(lambda g: g.mul_(inv), acc), {k: m * inv for k, m in msum.items()}
 
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, microbatches: int = 1):

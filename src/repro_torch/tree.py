@@ -44,6 +44,24 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def leaves_with_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) for the leaves of ``tree`` in flattening order; a path
+    joins dict keys, sequence indices and NamedTuple field names with "/",
+    e.g. ``"layers/0/attn/wq/w"``."""
+    if tree is None:
+        return []
+    if not _is_node(tree):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        names = sorted(tree)
+    elif _is_namedtuple(tree):
+        names = tree._fields
+    else:
+        names = range(len(tree))
+    return [pair for name, child in zip(names, _children(tree))
+            for pair in leaves_with_paths(child, f"{prefix}/{name}" if prefix else str(name))]
+
+
 def unflatten(like, new_leaves) -> Any:
     """A tree of ``like``'s structure holding ``new_leaves`` in order."""
     it = iter(new_leaves)

@@ -281,7 +281,9 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.layers.mamba2, repro_torch.configs.mamba2_1p3b, repro_torch.configs.zamba2_1p2b, "
         "repro_torch.configs.internvl2_2b, repro_torch.configs.hubert_xlarge, "
         "repro_torch.data.pipeline, repro_torch.optim.compression, repro_torch.train.train_step, "
-        "repro_torch.train.trainer, repro_torch.train.elastic, repro_torch.launch.train\n"
+        "repro_torch.train.trainer, repro_torch.train.elastic, repro_torch.launch.train, "
+        "repro_torch.launch.shapes, repro_torch.launch.dryrun, repro_torch.launch.hillclimb, "
+        "repro_torch.roofline.analysis, repro_torch.roofline.ops, repro_torch.roofline.report\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -1447,3 +1447,43 @@ def test_update_in_place_on_cuda_is_update(cuda, dtype, use_master):
         p, s, m = opt.update_(grads, s, p)
         for got, want in zip(tree.leaves((p, s, m)), tree.leaves((ref_p, ref_s, ref_m)), strict=True):
             assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# (shape, quant): phi3 at published widths and 4 layers; the packed cells
+# launch ``bitpack`` and ``bnn_matmul_packed`` (decode on the stream route,
+# prefill tiled), training runs the plain path.
+DRYRUN_CASES = [
+    (("dryrun_decode", 4096, 8, "decode"), "bnn_packed"),
+    (("dryrun_prefill", 2048, 4, "prefill"), "bnn_packed"),
+    (("dryrun_train", 1024, 4, "train"), "none"),
+]
+
+
+@pytest.mark.parametrize("shape,mode", DRYRUN_CASES)
+def test_dryrun_cell_on_cuda(cuda, tmp_path, shape, mode):
+    """``run_cell`` on the card at a reduced phi3: an ``ok`` record whose
+    measured peak lies between the exact resident bytes and resident +
+    the activation estimate (batch 1's measured activations times the
+    sequences a pass holds, which covers these reduced cells; at full
+    width some decode cells' activations grow faster than their batch),
+    the counted step's kernel launches those the count saw, roofline
+    fraction and mfu in (0, 1], the floor below the measured step."""
+    from repro_torch.launch import dryrun, shapes
+
+    shape = shapes.Shape(*shape)
+    quant = QuantConfig(mode=mode, targets=("ffn", "attn_proj"))
+    rec = dryrun.run_cell("phi3-mini-3.8b", shape.name, str(tmp_path), {"num_layers": 4, "quant": quant},
+                          device=cuda, shape=shape, steps=2)
+    assert rec["status"] == "ok" and rec["batch"] == shape.global_batch and rec["output"]["finite"]
+    m = rec["memory"]
+    resident = m["resident_bytes"]["total"]
+    assert resident <= m["peak_bytes"] <= resident + m["estimate_bytes"], m
+    assert rec["launches"] == rec["counts"]["kernel_launches"]
+    if mode == "bnn_packed":
+        assert rec["launches"]["bitpack"] > 0 and rec["launches"]["bnn_matmul_packed"] > 0
+    else:
+        assert rec["launches"] == {}
+    roof = rec["roofline"]
+    assert 0 < roof["roofline_fraction"] <= 1 and 0 < roof["mfu"] <= 1
+    assert roof["measured_step_s"] == rec["step_s"]["median"] > 0
+    assert 0 < roof["floor_fraction"] <= 1 and rec["measure_s"] > 0

@@ -132,6 +132,19 @@ def test_prefill_seeds_the_cache_and_decode_continues(s):
             _close(gc[name], wc[name], 1e-5)
 
 
+@pytest.mark.parametrize("s", [2, 40])
+def test_prefill_cache_tails_hold_only_their_rows(s):
+    """The window tails a prefill returns own storage of their own size: a
+    view of the padded projection would hold all S rows alive (per layer,
+    until the model's prefill stacks the cache)."""
+    _, tcfg, p = _layer()
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, s, tcfg.d_model)).astype(np.float32))
+    _, gc = tmamba.mamba2_apply(_t(p), x, tcfg, cache_index=0)
+    for name in ("conv_x", "conv_bc"):
+        t = gc[name]
+        assert t.untyped_storage().nbytes() == t.numel() * t.element_size()
+
+
 def test_prefill_without_a_cache_index_returns_none():
     jcfg, tcfg, p = _layer()
     x = np.random.default_rng(4).standard_normal((1, 9, jcfg.d_model)).astype(np.float32)
