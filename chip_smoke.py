@@ -9,16 +9,16 @@ What it does, in order:
    it: ``optable_run`` on the headline model's tables for the default and the
    native-popcount chip (all six opcodes) and on FIVE_TUPLE's (the largest
    register file), each timed, every launch on the ``shared`` route; the
-   ``global`` route, forced, on the same three, timed in turns with
-   ``shared`` on HEADLINE and FIVE_TUPLE; ``pack_bits_words`` and ``bitpack`` on both
+   ``split`` and ``global`` routes, forced, on the same three, timed in
+   turns with ``shared`` on HEADLINE and FIVE_TUPLE; ``pack_bits_words`` and ``bitpack`` on both
    routes (``vec`` and ``scalar``: ragged widths, misaligned views), float32
    and bf16 with planted subnormal signs, bf16 at the LM's decode and
-   scoring shapes; ``packed_layer`` on its routes (``quad``, ``general``
-   and ``cached``, forced) on the headline model's and FIVE_TUPLE's layers
+   scoring shapes; ``packed_layer`` on its routes (``quad``, ``general``,
+   ``tiled`` and ``cached``, forced) on the headline model's and FIVE_TUPLE's layers
    and their scan plans' pad neurons.  Each launch asserts its route.  The
    two kernels are timed per chunk as the device time of a replayed CUDA
    graph of 16 chunks, the new route in turns with the first design
-   (``scalar``, ``general``; and ``cached``) and with one packet (the
+   (``scalar``, ``general``; and ``tiled``, ``cached``) and with one packet (the
    launches' fixed cost), and back to
    back with events; bf16 ``bitpack`` as a graph of one decode layer's seven
    launches (in turns with the float32 cast and launch it replaced) and at
@@ -87,11 +87,11 @@ What it does, in order:
       launch on its layer's route;
    b. 32 tenants (1,833 merged registers, past the ``shared`` route) in
       ``merged``/``interleave`` and ``merged``/``concat`` on the op-table
-      backend, every launch on the ``global`` route, and on the packed
+      backend, every launch on the ``split`` route, and on the packed
       backend beside them (the ``concat`` merge's 916 x 32-word layer on
-      ``packed_layer``'s ``cached`` route); 128 tenants (7,081 registers) in
-      ``merged``/``interleave`` on the op-table backend over the first
-      MT_WIDE_OPTABLE_PACKETS packets; each tenant bit-exact as in a;
+      ``packed_layer``'s ``tiled`` route); 128 tenants (7,081 registers) in
+      ``merged``/``interleave`` on the op-table backend (``split``); each
+      tenant bit-exact as in a;
    c. three tenants, one replaying a synthetic capture written as pcap and
       pcapng and read back, in ``merged`` and ``time_sliced`` on both
       backends; the capture tenant is bit-exact with its BNN oracle.
@@ -100,10 +100,12 @@ What it does, in order:
    routes (``quad``, ``general``; timed there in turns as a replayed graph
    of 16 chunks), and every merged program that a run serves against its
    plain versions: ``optable_run`` on the 8-tenant merges (``shared``), on
-   both 32-tenant layouts at chunks of 1024 and 32768 and on the 128-tenant
-   ``interleave`` at 1024 (``global``), each timed with its bound, and
+   both 32-tenant layouts at chunks of 1024 and 32768 and on both 128-tenant
+   layouts at 1024 (``split``, and ``global`` forced, timed in turns with
+   their bound), and
    ``packed_layer`` on each block-diagonal layer of the 8- and 32-tenant
-   merges on the route it takes (``cached`` timed with its bound);
+   merges on the route it takes (``tiled``, held with ``cached``, forced,
+   and on the ``concat`` layout timed in turns with it and its bound);
 9. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
    fixed seed):
    a. holds ``bnn_matmul_packed`` (bit for bit, at the decode and prefill
@@ -327,9 +329,6 @@ MT_WEIGHTS = (3.0, 2.0, 1.0, 1.0, 2.0, 1.0)
 MT_WIDE = 128        # tenants of the widest interleaved packed run
 MT_OVER = 32         # tenants whose merged register file is past the shared route
 MT_OVER_REGS = 1833
-# Packets of the 128-tenant op-table run: a chunk of 1024 takes about 9 ms
-# on the global route, so the whole stream would add 10 s.
-MT_WIDE_OPTABLE_PACKETS = 1 << 18
 # examples/pcap_replay.py section 5: a 20,000-packet capture as one tenant of
 # three, twice its length served in chunks of 4096.
 PCAP_PACKETS = 20_000
@@ -398,8 +397,8 @@ def optable_bound(lowered, plan, batch: int) -> tuple[float, str]:
 def check_optable(dev, programs: dict) -> dict:
     """``optable_run`` against its plain version on each program's parsed
     chunk, on the route it takes (``shared``: every one fits) and on the
-    ``global`` route, forced, each timed; HEADLINE and FIVE_TUPLE time both
-    routes in turns.  The record holds the headline model's (the main
+    ``split`` and ``global`` routes, forced, each timed; HEADLINE and
+    FIVE_TUPLE time the three routes in turns.  The record holds the headline model's (the main
     path's) numbers.  The tables come from the executor's cache, as on the
     main path, so their plan was made from the host's copy."""
     run = optable_exec.optable_run
@@ -409,6 +408,8 @@ def check_optable(dev, programs: dict) -> dict:
         regs = executor.parse_packets(packets, *t.io[:2], num_regs=lowered.num_regs)
         tables = (*t.ops, t.first_write)
         plan, records = optable_exec.prepare(tables, lowered.num_regs)
+        plans = {"shared": (plan, records), "split": optable_exec.prepare_split(tables, lowered.num_regs),
+                 "global": (plan, records)}
         threads = optable_exec.plan_threads(plan, lowered.num_regs)
         want = optable_exec.optable_run_plain(regs, *tables)
         err = max(err, same(
@@ -416,19 +417,21 @@ def check_optable(dev, programs: dict) -> dict:
             f"true rows of {lowered.opcode.size}, {int(plan.deferred.sum())} deferred, scratch "
             f"{plan.max_deferred}, {threads} threads/block, shared)",
             routed(run, "shared", lambda: run(regs, *tables)), want))
-        err = max(err, same(f"optable_run {label} (global, forced)",
-                            routed(run, "global", lambda: optable_exec._launch(regs, plan, records, "global")),
-                            want))
+        for path in ("split", "global"):
+            err = max(err, same(f"optable_run {label} ({path}, forced)",
+                                routed(run, path, lambda: optable_exec._launch(regs, *plans[path], path)),
+                                want))
         if label == "HEADLINE/rmt+popcnt32":
             times[label] = time_ms(run, regs, *tables)
             print(f"    optable_run {label}: {times[label]} ms per chunk of {CHUNK}")
             continue
-        t_route = in_turns({path: (lambda path=path: optable_exec._launch(regs, plan, records, path))
+        t_route = in_turns({path: (lambda path=path: optable_exec._launch(regs, *plans[path], path))
                             for path in optable_exec.ROUTES})
         times[label] = t_route["shared"]
         times[f"{label} global"] = t_route["global"]
-        print(f"    optable_run {label}: shared {t_route['shared']} ms, global {t_route['global']} ms per "
-              f"chunk of {CHUNK}; bound {optable_bound(lowered, plan, CHUNK)[0]} ms")
+        times[f"{label} split"] = t_route["split"]
+        print(f"    optable_run {label}: shared {t_route['shared']} ms, split {t_route['split']} ms, global "
+              f"{t_route['global']} ms per chunk of {CHUNK}; bound {optable_bound(lowered, plan, CHUNK)[0]} ms")
         if label == "HEADLINE/rmt":
             plain = time_ms(optable_exec.optable_run_plain, regs, *tables, iters=3)
             b_ms, b_by = optable_bound(lowered, plan, CHUNK)
@@ -440,9 +443,9 @@ def check_optable(dev, programs: dict) -> dict:
         source="src/repro_torch/csrc/optable_exec.cu",
         replaces="src/repro/kernels/optable_exec.py:87",
         max_abs_err=err, ms=times["HEADLINE/rmt"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        ms_global=times["HEADLINE/rmt global"], ms_one_packet=times["one packet"],
-        ms_five_tuple=times["FIVE_TUPLE/rmt"],
-        ms_five_tuple_global=times["FIVE_TUPLE/rmt global"],
+        ms_global=times["HEADLINE/rmt global"], ms_split=times["HEADLINE/rmt split"],
+        ms_one_packet=times["one packet"], ms_five_tuple=times["FIVE_TUPLE/rmt"],
+        ms_five_tuple_global=times["FIVE_TUPLE/rmt global"], ms_five_tuple_split=times["FIVE_TUPLE/rmt split"],
     )
 
 
@@ -576,14 +579,16 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
     """``packed_layer`` against its plain version on the main path's layers
     (quad route), the scan plan's padded layers (pad neurons must never
     fire), FIVE_TUPLE's layers (4, 2 and 1 words; its 2-neuron output layer
-    takes the general route) and its scan plan, and every main-path layer on
-    the general and cached routes, forced.
+    takes the general route; each also on the tiled route, forced) and its
+    scan plan, and every main-path layer on the general, tiled and cached
+    routes, forced.
 
     Timed per chunk (the main path's two launches) as the device time of a
     replayed CUDA graph of CHUNK_REPS chunks, the quad route in turns with the
-    general route (the first design: a thread per output), the cached route
-    (the same kernel, tables not staged) and with one packet, and back to
-    back with events."""
+    general route (the first design: a thread per output), the tiled and
+    cached routes (the two designs for tables past shared memory) and with
+    one packet, and back to back with events; FIVE_TUPLE's layers on their
+    routes in turns with the tiled route."""
     fn = packed_layer.packed_layer
 
     def operands(weights, mask, thresholds, h):
@@ -626,6 +631,7 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
     stacked(lp, layer_inputs[0], "HEADLINE")
     five_lp, five_packets = five
     h = five_packets
+    five_layers = []  # (operands, an output buffer, the layer's route)
     for pl in five_lp.packed.layers:
         args = operands(pl.weights, pl.mask, pl.thresholds, h)
         path = packed_layer.route(*args[:2])
@@ -633,9 +639,21 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
         if path != want:
             raise AssertionError(f"FIVE_TUPLE layer {pl.n_in}->{pl.n_out} routes to {path}, not {want}")
         h = routed(fn, path, lambda: fn(*args))
+        plain_out = packed_layer.packed_layer_plain(*args)
         err = max(err, same(f"packed_layer FIVE_TUPLE {pl.n_in}->{pl.n_out} ({pl.n_words} words, {path})",
-                            h, packed_layer.packed_layer_plain(*args)))
+                            h, plain_out))
+        out = torch.empty_like(h)
+        err = max(err, same(f"packed_layer FIVE_TUPLE {pl.n_in}->{pl.n_out} (tiled, forced)",
+                            routed(fn, "tiled", lambda: packed_layer._launch(*args, out, "tiled")), plain_out))
+        five_layers.append((args, out, path))
     stacked(five_lp, five_packets, "FIVE_TUPLE")
+    # FIVE_TUPLE's layers per chunk on their routes and on tiled, forced.
+    t5 = graphs_in_turns({name: repeated(lambda name=name: [
+        packed_layer._launch(*args, out, path if name == "routes" else "tiled") for args, out, path in five_layers],
+        CHUNK_REPS) for name in ("routes", "tiled")})
+    t5 = {name: v / CHUNK_REPS for name, v in t5.items()}
+    print(f"  packed_layer FIVE_TUPLE per chunk of {CHUNK} ({len(five_layers)} launches): graph replay on their "
+          f"routes {t5['routes']} ms, tiled {t5['tiled']} ms")
 
     def chunk(path, rows=CHUNK):
         cut = [((args[0][:rows], *args[1:]), out[:rows]) for args, out in chunk_args]
@@ -644,16 +662,19 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
     # CHUNK_REPS chunks a graph; the same launches on one packet give their
     # fixed cost in a graph.
     t = graphs_in_turns({name: repeated(call, CHUNK_REPS) for name, call in (
-        ("quad", chunk("quad")), ("general", chunk("general")), ("cached", chunk("cached")),
+        ("quad", chunk("quad")), ("general", chunk("general")), ("tiled", chunk("tiled")),
+        ("cached", chunk("cached")),
         ("quad, 1 packet", chunk("quad", 1)))})
     t = {name: v / CHUNK_REPS for name, v in t.items()}
     print(f"  packed_layer per chunk of {CHUNK} (2 launches): graph replay quad {t['quad']} ms, "
-          f"general {t['general']} ms, cached {t['cached']} ms (one packet: {t['quad, 1 packet']} ms); "
+          f"general {t['general']} ms, tiled {t['tiled']} ms, cached {t['cached']} ms (one packet: "
+          f"{t['quad, 1 packet']} ms); "
           f"back to back (events) {back_to_back} ms; bound {b_ms} ms ({b_by})")
     return dict(
         source="src/repro_torch/csrc/packed_layer.cu",
         replaces="src/repro/dataplane/executor.py:213",
-        max_abs_err=err, ms=t["quad"], old_route_ms=t["general"], cached_route_ms=t["cached"],
+        max_abs_err=err, ms=t["quad"], old_route_ms=t["general"], tiled_route_ms=t["tiled"],
+        cached_route_ms=t["cached"], five_tuple_ms=t5["routes"], five_tuple_tiled_ms=t5["tiled"],
         back_to_back_ms=back_to_back,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
     )
@@ -1256,18 +1277,26 @@ def serve(dev, label: str, sched: SwitchScheduler, tids, bits, wants, records: d
     return res
 
 
+MERGED_REPS = 4   # launches a graph when a merged program's kernels are timed
+
+
 def check_merged_kernels(dev, count: int, sched: SwitchScheduler, tids, bits, records: dict, *,
                          layouts=("interleave", "concat"), rows=(MT_CHUNK,), path: str = "shared",
                          layers: bool = True) -> None:
     """``optable_run`` on each merged layout's tables over the mixed
     stream's first packets routed into the merged register file, at each of
     ``rows`` packets: it must take route ``path`` and equal its plain
-    version, and it is timed there with its bound (the same work whatever
-    the route).  With ``layers``, ``packed_layer`` on the block-diagonal
-    merged layers (words scattered from the routed bits of the first
-    MT_CHUNK packets) on the route the wrapper takes, against its plain
-    version; a layer on the cached route is timed with its bound.  Not
-    counted as main-path launches."""
+    version.  On the shared route it is timed with events; past it (``path``
+    ``split``) the ``global`` route, forced, must equal it too, and the two
+    are timed in turns as replayed graphs of MERGED_REPS launches (a chunk
+    of 1024 on split is a few tens of microseconds, near the wrapper's own
+    host time), beside the bound (the same work whatever the route).  With ``layers``,
+    ``packed_layer`` on the block-diagonal merged layers (words scattered
+    from the routed bits of the first MT_CHUNK packets) on the route the
+    wrapper takes, against its plain version; a layer on the tiled route is
+    held with the cached route, forced, and on the ``concat`` layout (the
+    packed backend's) timed in turns with it (graphs of CHUNK_REPS
+    launches) beside its bound.  Not counted as main-path launches."""
     idx = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(dev)  # noqa: E731
     run = optable_exec.optable_run
     rec, layer_rec = records["optable_run"], records["packed_layer"]
@@ -1275,7 +1304,8 @@ def check_merged_kernels(dev, count: int, sched: SwitchScheduler, tids, bits, re
         mp = sched.merged(layout)
         lp = mp.lowered
         t = executor._device_tables(lp, dev)
-        plan, _ = optable_exec.prepare((*t.ops, t.first_write), lp.num_regs)
+        tables = (*t.ops, t.first_write)
+        plan, plan_records = optable_exec.prepare(tables, lp.num_regs)
         if optable_exec.route(plan, lp.num_regs) != path:
             raise AssertionError(f"{count} tenants merged {layout}: optable_run routes to "
                                  f"{optable_exec.route(plan, lp.num_regs)}, not {path}")
@@ -1283,18 +1313,36 @@ def check_merged_kernels(dev, count: int, sched: SwitchScheduler, tids, bits, re
             d_tids, d_bits = torch.from_numpy(tids[:n]).to(dev), torch.from_numpy(bits[:n]).to(dev)
             regs = executor.parse_packets_routed(d_bits, d_tids, idx(mp.in_slot), idx(mp.in_shift),
                                                  idx(mp.in_valid), num_regs=lp.num_regs)
-            err = same(f"optable_run merged {layout}, {count} tenants ({lp.num_regs} regs, {lp.opcode.shape} "
-                       f"table, {int(plan.rows.sum())} true rows, scratch {plan.max_deferred}, {n} packets, "
-                       f"{path})",
-                       routed(run, path, lambda: run(regs, *t.ops, t.first_write)),
-                       optable_exec.optable_run_plain(regs, *t.ops, t.first_write))
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            ms = time_ms(run, regs, *t.ops, t.first_write, iters=10)
+            want = optable_exec.optable_run_plain(regs, *tables)
+            shape = f"{lp.num_regs} regs, {lp.opcode.shape} table, {int(plan.rows.sum())} true rows"
+            if path == "split":
+                sp, _ = optable_exec.prepare_split(tables, lp.num_regs)
+                shape += (f", {sp.num_phases} phases of at most {sp.chains} chains, {sp.threads} threads and "
+                          f"{sp.packets} packets a block")
+            else:
+                shape += f", scratch {plan.max_deferred}"
+            err = same(f"optable_run merged {layout}, {count} tenants ({shape}, {n} packets, {path})",
+                       routed(run, path, lambda: run(regs, *tables)), want)
             b_ms, b_by = optable_bound(lp, plan, n)
-            key = f"{count}_tenants_{layout}_{path}" + ("" if n == CHUNK else f"_chunk_{n}")
-            rec[f"ms_{key}"], rec[f"bound_ms_{key}"] = ms, b_ms
-            print(f"    optable_run merged {layout}, {count} tenants, {path}: {ms} ms per chunk of {n}; "
-                  f"bound {b_ms} ms ({b_by})")
+            key = f"{count}_tenants_{layout}_{{}}" + ("" if n == CHUNK else f"_chunk_{n}")
+            if path == "shared":
+                ms = {path: time_ms(run, regs, *tables, iters=10)}
+            else:
+                calls = {
+                    "split": lambda: run(regs, *tables),
+                    "global": lambda: optable_exec._launch(regs, plan, plan_records, "global"),
+                }
+                err = max(err, same(f"optable_run merged {layout}, {count} tenants, {n} packets, global (forced)",
+                                    routed(run, "global", calls["global"]), want))
+                ms = {name: v / MERGED_REPS for name, v in graphs_in_turns(
+                    {name: repeated(call, MERGED_REPS) for name, call in calls.items()}, iters=10).items()}
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            for name, v in ms.items():
+                rec[f"ms_{key.format(name)}"] = v
+            rec[f"bound_ms_{key.format(path)}"] = b_ms
+            print(f"    optable_run merged {layout}, {count} tenants: "
+                  + ", ".join(f"{name} {v} ms" for name, v in ms.items())
+                  + f" per chunk of {n}; bound {b_ms} ms ({b_by})")
         if not layers:
             continue
         n = MT_CHUNK
@@ -1307,20 +1355,28 @@ def check_merged_kernels(dev, count: int, sched: SwitchScheduler, tids, bits, re
             args = (words, executor._i32(pl.weights).to(dev), executor._i32(pl.mask).to(dev),
                     executor._i32(pl.thresholds).to(dev))
             layer_path = packed_layer.route(*args[:2])
-            if count == MT_OVER and li == 0 and layer_path != "cached":
+            if count == MT_OVER and li == 0 and layer_path != "tiled":
                 raise AssertionError(f"{count} tenants merged {layout}: the {pl.n_out} x {pl.n_words}-word "
-                                     f"block-diagonal layer routes to {layer_path}, not cached")
+                                     f"block-diagonal layer routes to {layer_path}, not tiled")
             h = routed(fn, layer_path, lambda: fn(*args))
+            want = packed_layer.packed_layer_plain(*args)
             err = same(f"packed_layer merged {layout}, {count} tenants, layer {li} ({pl.n_out} out, "
-                       f"{pl.n_words} words, {n} packets, {layer_path})", h, packed_layer.packed_layer_plain(*args))
-            layer_rec["max_abs_err"] = max(layer_rec["max_abs_err"], err)
-            if layer_path == "cached":
-                ms = time_ms(fn, *args)
+                       f"{pl.n_words} words, {n} packets, {layer_path})", h, want)
+            if layer_path == "tiled":
+                out = torch.empty_like(h)
+                err = max(err, same(f"packed_layer merged {layout}, {count} tenants, layer {li}, cached (forced)",
+                                    routed(fn, "cached", lambda: packed_layer._launch(*args, out, "cached")), want))
+            if layer_path == "tiled" and layout == "concat":
+                t_l = graphs_in_turns({name: repeated(lambda name=name: packed_layer._launch(*args, out, name),
+                                                      CHUNK_REPS) for name in ("tiled", "cached")})
                 b_ms, b_by = costs.packed_layer(*words.shape, pl.n_out).bound_ms()
-                key = f"cached_{count}_tenants_{layout}_layer_{li}_chunk_{n}"
-                layer_rec[f"ms_{key}"], layer_rec[f"bound_ms_{key}"] = ms, b_ms
+                for name, v in t_l.items():
+                    layer_rec[f"ms_{name}_{count}_tenants_{layout}_layer_{li}_chunk_{n}"] = v / CHUNK_REPS
+                layer_rec[f"bound_ms_tiled_{count}_tenants_{layout}_layer_{li}_chunk_{n}"] = b_ms
                 print(f"    packed_layer merged {layout}, {count} tenants, layer {li} ({pl.n_out} x {pl.n_words} "
-                      f"words), cached: {ms} ms per chunk of {n}; bound {b_ms} ms ({b_by})")
+                      f"words): tiled {t_l['tiled'] / CHUNK_REPS} ms, cached {t_l['cached'] / CHUNK_REPS} ms per "
+                      f"chunk of {n}; bound {b_ms} ms ({b_by})")
+            layer_rec["max_abs_err"] = max(layer_rec["max_abs_err"], err)
 
 
 def check_packed_layer_routed(dev, pools: dict) -> dict:
@@ -1424,13 +1480,13 @@ def drive_multitenant(dev, records: dict) -> None:
     scheds = {count: pool.fleet.scheduler(quantum=MT_CHUNK) for count, (pool, _, _) in pools.items()}
     sched8 = scheds[8]
     # Every merged program that is served, held against its plain versions:
-    # 8 tenants on the shared route; 32 in both layouts and 128 interleaved
-    # (op-table only) past it, on the global route.
+    # 8 tenants on the shared route; 32 in both layouts and 128 (op-table
+    # only) past it, on the split route.
     check_merged_kernels(dev, 8, sched8, *pools[8][1:], records)
     check_merged_kernels(dev, MT_OVER, scheds[MT_OVER], *pools[MT_OVER][1:], records,
-                         rows=(MT_CHUNK, CHUNK), path="global")
-    check_merged_kernels(dev, MT_WIDE, scheds[MT_WIDE], *pools[MT_WIDE][1:], records,
-                         layouts=("interleave",), path="global", layers=False)
+                         rows=(MT_CHUNK, CHUNK), path="split")
+    check_merged_kernels(dev, MT_WIDE, scheds[MT_WIDE], *pools[MT_WIDE][1:], records, path="split",
+                         layers=False)
     records["packed_layer_routed"] = check_packed_layer_routed(
         dev, {c: ([p.lower() for p in pools[c][0].progs], *pools[c][1:]) for c in (8, MT_WIDE, MT_OVER)})
 
@@ -1451,7 +1507,7 @@ def drive_multitenant(dev, records: dict) -> None:
 
     # Past the shared route: 32 tenants' merged register file (1,833
     # registers) in both layouts on both backends, and 128 tenants' (7,081)
-    # interleaved on the op-table backend over the stream's first packets.
+    # interleaved on the op-table backend.
     pool, tids, bits = pools[MT_OVER]
     wants = tenant_wants(dev, pool, tids, bits, MT_CHUNK)
     over = scheds[MT_OVER]
@@ -1462,14 +1518,10 @@ def drive_multitenant(dev, records: dict) -> None:
         for backend in ("jnp", "packed"):
             serve(dev, f"{MT_OVER} tenants, merged/{layout}, {'packed' if backend == 'packed' else 'op-table'}",
                   over, tids, bits, wants, records, mode="merged", layout=layout, backend=backend,
-                  optable_route="global")
+                  optable_route="split")
     _, tids, bits = pools[MT_WIDE]
-    head = tids[:MT_WIDE_OPTABLE_PACKETS]
-    # A tenant's outputs on a prefix of the stream are the first of its own.
-    prefix = [want[:int((head == t).sum())] for t, want in enumerate(wide_wants)]
-    serve(dev, f"{MT_WIDE} tenants, merged/interleave, op-table ({len(head)} packets)", wide, head,
-          bits[:len(head)], prefix, records, mode="merged", layout="interleave", backend="jnp",
-          optable_route="global")
+    serve(dev, f"{MT_WIDE} tenants, merged/interleave, op-table", wide, tids, bits, wide_wants, records,
+          mode="merged", layout="interleave", backend="jnp", optable_route="split")
     drive_capture_tenants(dev, records)
 
 

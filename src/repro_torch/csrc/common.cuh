@@ -41,6 +41,22 @@ inline int allow_shared_bytes(Kernel kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
+// cp.async copies into shared memory (sm_80 and up), one commit group per
+// call of cp_async_commit: `bytes` of the 16 (or 4) are read and the rest
+// zero-filled, so 0 copies nothing and writes zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, uint32_t bytes = 16) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, uint32_t bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
 // The sign bit the reference gives a float: 1 where x >= 0.  The reference's
 // signs are computed with subnormals flushed to zero (XLA's CPU backend and
 // the TPU), so a negative subnormal counts as -0.0 and gets a 1.  The rule

@@ -37,8 +37,8 @@
 //   plan pads each run of one opcode to whole groups (lowering sorts an
 //   element's rows by opcode, so the headline model needs no padding), and a
 //   group branches once on its opcode, the same across the block.
-// - One thread per packet, two routes (the wrapper's route() picks one from
-//   the plan before it launches):
+// - Three routes (the wrapper's route() picks one from the plan before it
+//   launches); the first two run one thread per packet:
 //   * shared (optable_kernel): a block keeps its packets' register files and
 //     scratch in dynamic shared memory as [slot][thread] (consecutive
 //     threads, consecutive banks) and walks ALL elements in one launch, so
@@ -49,10 +49,10 @@
 //     per row.  Threads past the batch run on zeros and store nothing (they
 //     take part in the barriers).  The wrapper picks the block size that
 //     keeps the most packets resident on an SM.
-//   * global (optable_global_kernel), for a program whose register file and
-//     scratch do not fit one packet's share of a block's shared memory at 32
-//     packets a block (a merge of 32 or more tenants: 1,833 registers and
-//     more).  Each packet's registers and scratch live in device memory,
+//   * global (optable_global_kernel), for a program whose register file fits
+//     neither the shared route (one packet's share of a block at 32 packets)
+//     nor the split route below (a file past about 7,000 to 14,500
+//     registers).  Each packet's registers and scratch live in device memory,
 //     slot-major as (num_regs + scratch, batch), so the 32 packets of a warp
 //     touch one 128-byte line a slot; the file stays in L2 while a chunk of
 //     1024 packets runs (11 MB at 32 tenants).  Only the records are staged
@@ -66,6 +66,33 @@
 //   write_back) over a base pointer and a slot stride: this thread's column
 //   of the shared block with stride blockDim.x, or of the global file with
 //   stride batch.
+//   On a merge of 32 tenants (1,833 registers, 32,920 rows) the global route
+//   walks every row one packet a thread, so a chunk of 1024 packets is 32
+//   warps on the whole card, and every row's traffic goes to L2 or device
+//   memory.
+// - split (optable_split_kernel), the route for such merges: a block holds
+//   the register files of 4 or 8 packets in shared memory (7,332 B a packet
+//   at 32 tenants, 28,324 B at 128), and spreads each element's rows over
+//   its threads instead of its packets.  The wrapper's plan
+//   (kernels/optable_exec.py::make_split) turns each element into chains,
+//   one per register it writes: the last first write and the FOLD rows
+//   after it (rows a later first write supersedes are dropped; the cut pads
+//   become their last row, a first write of 0).  Each chain goes whole to
+//   one thread (lane), the lanes' runs balanced by rows and sorted by
+//   opcode, so a warp mostly branches alike.  Every row reads the file as
+//   it stood entering the element, and nearly every row of a merge writes a
+//   register some row of its element reads, so a phase has two steps:
+//   every lane sums each of its chains over its rows into a value buffer in
+//   shared memory (one 16-byte value per chain and group of 4 packets),
+//   then, after a barrier, each chain's value is stored or added into its
+//   register.  A thread reads each record once, through the read-only
+//   cache, and computes it for all of its block's packets: the file is
+//   [group of 4][slot] uint4, so one 16-byte load brings a slot of 4
+//   packets.  Elements that the plan can run side by side share a phase
+//   (two barriers a phase, not an element: the concat layout's 766 elements
+//   of at most 128 rows fill 30 phases, as the interleave layout's 30 do).
+//   The next phase's lane starts and write list are loaded before the
+//   barrier that ends a phase.
 //
 // uint32 semantics match XLA's: shifts by 32 or more give 0 (the clamped
 // funnel shifts), ADD wraps, GE_IMM compares unsigned, POPCNT is __popc.
@@ -80,13 +107,8 @@ namespace {
 enum : uint32_t { kXorImm = 0, kShrAndImm = 1, kAdd = 2, kGeImm = 3, kShlImm = 4, kPopcnt = 5 };
 constexpr int kRowGroup = 32;  // kernels/optable_exec.py ROW_GROUP
 constexpr int kTile = 1024;    // records of one element a global-route block stages at once
+constexpr int kSplitWrites = 8;  // kernels/optable_exec.py SPLIT_WRITES: a phase's chains a thread
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 template <uint32_t OP>
 __device__ __forceinline__ uint32_t alu(uint32_t a, uint32_t b, uint32_t i0) {
@@ -201,7 +223,7 @@ __global__ void optable_kernel(const uint4* __restrict__ plan, const uint32_t* _
     }
   }
   for (int e = 0; e < num_elements; ++e) {
-    cp_async_wait_all();
+    cp_async_wait<0>();
     // Element e's records are in, and every thread is done with e - 1, whose
     // buffer element e + 1's records now overwrite while e runs.
     __syncthreads();
@@ -253,7 +275,7 @@ __global__ void optable_global_kernel(const uint4* __restrict__ plan, uint32_t* 
     const int rows = static_cast<int>(head.x);
     const int n_steps = steps(rows);
     for (int k = 0; k < n_steps; ++k, ++s) {
-      cp_async_wait_all();
+      cp_async_wait<0>();
       // This step's records are in, and every thread is done with the
       // previous step, whose tile the next step's records now overwrite.
       __syncthreads();
@@ -271,7 +293,166 @@ __global__ void optable_global_kernel(const uint4* __restrict__ plan, uint32_t* 
   }
 }
 
+template <uint32_t OP>
+__device__ __forceinline__ uint4 alu4(uint4 a, uint4 b, uint32_t i0) {
+  return make_uint4(alu<OP>(a.x, b.x, i0), alu<OP>(a.y, b.y, i0), alu<OP>(a.z, b.z, i0), alu<OP>(a.w, b.w, i0));
+}
+
+// One row of the split route over a group of 4 packets: the op on each
+// packet's slots (src1 read only by ADD), masked.
+__device__ __forceinline__ uint4 row4(const uint4* __restrict__ F, uint4 r) {
+  const uint4 a = F[r.x & 0xFFFFu];
+  uint4 v;
+  switch ((r.y >> 16) & 0xFu) {
+    case kXorImm: v = alu4<kXorImm>(a, a, r.z); break;
+    case kShrAndImm: v = alu4<kShrAndImm>(a, a, r.z); break;
+    case kAdd: v = alu4<kAdd>(a, F[r.x >> 16], r.z); break;
+    case kGeImm: v = alu4<kGeImm>(a, a, r.z); break;
+    case kShlImm: v = alu4<kShlImm>(a, a, r.z); break;
+    default: v = alu4<kPopcnt>(a, a, r.z); break;
+  }
+  return make_uint4(v.x & r.w, v.y & r.w, v.z & r.w, v.w & r.w);
+}
+
+__device__ __forceinline__ uint4 add4(uint4 a, uint4 b) {
+  return make_uint4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// What a thread needs of a phase before its rows: its lane's rows and its
+// entries of the write list (chains t, t + T, ...).
+struct SplitPhase {
+  const uint4* rows;
+  int chains, r0, r1;
+  uint32_t ent[kSplitWrites];
+};
+
+__device__ __forceinline__ SplitPhase split_phase(const uint4* __restrict__ plan, int ph, int t, int T) {
+  SplitPhase p;
+  const uint4* at = plan + __ldg(reinterpret_cast<const uint32_t*>(plan) + ph);
+  const uint4 head = __ldg(at);  // chains, rows
+  p.chains = static_cast<int>(head.x);
+  const uint32_t* start = reinterpret_cast<const uint32_t*>(at + 1);
+  p.rows = at + 1 + (T + 1 + 3) / 4;
+  p.r0 = static_cast<int>(__ldg(start + t));
+  p.r1 = static_cast<int>(__ldg(start + t + 1));
+  const uint32_t* write = reinterpret_cast<const uint32_t*>(p.rows + head.y);
+#pragma unroll
+  for (int k = 0; k < kSplitWrites; ++k) {
+    const int c = t + k * T;
+    p.ent[k] = c < p.chains ? __ldg(write + c) : 0u;
+  }
+  return p;
+}
+
+// The split route: block blockIdx.x holds packets [4Q * blockIdx.x, +4Q) as
+// Q groups of 4, F = [Q][num_regs] uint4 then the value buffer V = [Q][chains]
+// uint4 in dynamic shared memory.  Thread t is lane t of every phase.
+// Packets past the batch run on zeros and store nothing.
+template <int Q>
+__global__ void __launch_bounds__(1024)
+optable_split_kernel(const uint4* __restrict__ plan, const uint32_t* __restrict__ regs_in,
+                     uint32_t* __restrict__ regs_out, int num_regs, int batch, int num_phases,
+                     int chains) {
+  extern __shared__ uint4 smem4[];
+  uint4* F = smem4;
+  uint4* V = smem4 + Q * num_regs;
+  const int T = blockDim.x, t = threadIdx.x;
+  constexpr int P = 4 * Q;
+  constexpr int U = 4 / Q;  // rows a lane loads at once
+  const long long b0 = static_cast<long long>(blockIdx.x) * P;
+  uint32_t* Fw = reinterpret_cast<uint32_t*>(F);
+  // The registers in, packets fastest (P consecutive words of one slot).
+  for (int i = t; i < num_regs * P; i += T) {
+    const int p = i % P, s = i / P;
+    const long long b = b0 + p;
+    Fw[((p >> 2) * num_regs + s) * 4 + (p & 3)] = b < batch ? regs_in[static_cast<size_t>(s) * batch + b] : 0u;
+  }
+  SplitPhase ph = num_phases > 0 ? split_phase(plan, 0, t, T) : SplitPhase{};
+  __syncthreads();
+  for (int k = 0; k < num_phases; ++k) {
+    // Every value from the file as it entered the phase: each of this lane's
+    // chains summed over its rows (a FOLD adds mod 2^32), into V.
+    // U rows at a time: their records, then all their values (the loads in
+    // flight together), then the sums in row order (a lane's long FOLD chain
+    // is 32 rows, where most lanes have a few).
+    uint4 cur[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) cur[q] = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = ph.r0; i < ph.r1; i += U) {
+      uint4 r[U], v[U][Q];
+#pragma unroll
+      for (int u = 0; u < U; ++u) r[u] = i + u < ph.r1 ? __ldg(ph.rows + i + u) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int q = 0; q < Q; ++q) v[u][q] = row4(F + q * num_regs, r[u]);  // a zero record gives 0
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int q = 0; q < Q; ++q) cur[q] = add4(cur[q], v[u][q]);
+        if ((r[u].y >> 20) & 1u) {  // the chain's last row
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            V[q * chains + (r[u].y & 0xFFFFu)] = cur[q];
+            cur[q] = make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // Then each chain's value into its register: stored by a first write,
+    // else added to what the register held.
+#pragma unroll
+    for (int j = 0; j < kSplitWrites; ++j) {
+      const int c = t + j * T;
+      if (c < ph.chains) {
+        const uint32_t d = ph.ent[j] & 0xFFFFu;
+        const bool store = (ph.ent[j] >> 16) & 1u;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const uint4 v = V[q * chains + c];
+          F[q * num_regs + d] = store ? v : add4(v, F[q * num_regs + d]);
+        }
+      }
+    }
+    if (k + 1 < num_phases) ph = split_phase(plan, k + 1, t, T);
+    __syncthreads();
+  }
+  for (int i = t; i < num_regs * P; i += T) {
+    const int p = i % P, s = i / P;
+    const long long b = b0 + p;
+    if (b < batch) regs_out[static_cast<size_t>(s) * batch + b] = Fw[((p >> 2) * num_regs + s) * 4 + (p & 3)];
+  }
+}
+
 }  // namespace
+
+extern "C" int optable_run_split(const void* plan, const void* regs_in, void* regs_out, int num_regs,
+                                 int batch, int num_phases, int chains, int packets, int threads,
+                                 void* stream) {
+  if (batch <= 0 || threads < 32 || threads > 1024 || (packets != 4 && packets != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(packets) * 4 * (static_cast<size_t>(num_regs) + chains);
+  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(batch) + packets - 1) / packets);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const uint4*>(plan);
+  const auto* in = static_cast<const uint32_t*>(regs_in);
+  auto* out = static_cast<uint32_t*>(regs_out);
+  int rc;
+  if (packets == 8) {
+    rc = allow_shared_bytes(optable_split_kernel<2>, smem);
+    if (rc) return rc;
+    optable_split_kernel<2><<<blocks, threads, smem, s>>>(p, in, out, num_regs, batch, num_phases, chains);
+  } else {
+    rc = allow_shared_bytes(optable_split_kernel<1>, smem);
+    if (rc) return rc;
+    optable_split_kernel<1><<<blocks, threads, smem, s>>>(p, in, out, num_regs, batch, num_phases, chains);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int optable_run(const void* plan, const void* regs_in, void* regs_out, int num_regs,
                            int batch, int num_elements, int stride, int scratch_rows, int threads,

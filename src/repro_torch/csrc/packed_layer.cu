@@ -35,12 +35,28 @@
 //   shared memory).  One thread per (packet, neuron), neurons fastest; each
 //   block stages the layer's weights, masks and thresholds in shared memory
 //   once, then strides over the outputs.
-// * cached (the general route's layers whose tables are past one block's
+// * tiled (the general route's layers whose tables are past one block's
 //   shared memory: the block-diagonal layer of 32 merged tenants, 916
-//   neurons x 32 words).  The general kernel without the staging: the tables
-//   are read through the read-only cache.
+//   neurons x 32 words, and of 128 tenants, 3540 x 128 and 1510 x 150).
+//   Such a layer is a small binary GEMM with a threshold, and there what
+//   bounds it is the popcounts (30 M for 1024 packets x 916 neurons x 32
+//   words), not the bytes.  A block takes a tile of 64 packets x 64 neurons
+//   and walks K in stages of 32 words: the packets' words and the neurons'
+//   weight and mask rows go into shared memory by cp.async (16-byte copies
+//   where a row is whole 16-byte vectors and every operand is aligned, else
+//   4-byte ones; zeros past every edge, and a zero mask adds nothing), two
+//   stages in flight.  Thread (tm, tn) of 16 x 16 counts packets tm + 16i
+//   against neurons 4tn + j (i, j < 4) in registers, reading 16-byte vectors
+//   of 4 words: a staged row is 36 words (9 vectors, odd), so the 8 lanes of
+//   a quarter warp read 8 rows in 8 different bank groups, and they share
+//   their neurons (one broadcast).  Each packet's 4 neurons are stored as
+//   one int4 where n_out is a multiple of 4, one int at a time at ragged
+//   edges.
+// * cached (kept as a forced route: the earlier design for those layers).  The
+//   general kernel without the staging: the tables are read through the
+//   read-only cache, each lane its own row 128 B from its neighbour's.
 //
-// Both index with 32-bit integers (the wrapper keeps every index below 2^31).
+// All index with 32-bit integers (the wrapper keeps every index below 2^31).
 //
 // packed_layer_routed is the per-tenant layer of the multi-tenant
 // scheduler's stacked dispatch.  It replaces no TPU kernel either: the
@@ -242,6 +258,109 @@ packed_layer_routed_quad_kernel(const uint32_t* __restrict__ words, const int* _
   }
 }
 
+constexpr int kTileRows = 64;                 // packets (and neurons) of a tiled-route tile
+constexpr int kTileWords = 32;                // words of K a stage holds
+constexpr int kTileStride = kTileWords + 4;   // words a staged row takes: 9 vectors, an odd count
+constexpr int kTiledThreads = 256;            // 16 x 16 threads, 4 x 4 outputs each
+constexpr size_t kTiledSharedBytes = 2 * 3 * kTileRows * kTileStride * sizeof(uint32_t);
+
+__device__ __forceinline__ uint32_t xnor_popc4(uint4 x, uint4 w, uint4 m) {
+  return static_cast<uint32_t>(__popc(~(x.x ^ w.x) & m.x) + __popc(~(x.y ^ w.y) & m.y) +
+                               __popc(~(x.z ^ w.z) & m.z) + __popc(~(x.w ^ w.w) & m.w));
+}
+
+// kVec: n_words a multiple of 4 and words, weights and mask 16-byte aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(kTiledThreads)
+packed_layer_tiled_kernel(const uint32_t* __restrict__ words, const uint32_t* __restrict__ weights,
+                          const uint32_t* __restrict__ mask, const uint32_t* __restrict__ thr,
+                          int* __restrict__ out, uint32_t batch, uint32_t n_out, uint32_t n_words) {
+  extern __shared__ uint4 tiles4[];
+  uint32_t* tiles = reinterpret_cast<uint32_t*>(tiles4);  // [stage][x, w, m][row][kTileStride]
+  const uint32_t t = threadIdx.x, tm = t % 16, tn = t / 16;
+  const uint32_t m0 = blockIdx.x * kTileRows, n0 = blockIdx.y * kTileRows;
+  constexpr int kArray = kTileRows * kTileStride;
+
+  // K words [c * kTileWords, +kTileWords) of the tile's packets, weights and
+  // masks into stage s; zeros past the batch, n_out and n_words.
+  auto stage = [&](uint32_t c, int s) {
+    const uint32_t k0 = c * kTileWords;
+    constexpr uint32_t kPer = kVec ? kTileWords / 4 : kTileWords;  // copies a row
+    for (uint32_t i = t; i < 3 * kTileRows * kPer; i += kTiledThreads) {
+      const uint32_t a = i / (kTileRows * kPer), row = i / kPer % kTileRows, j = i % kPer;
+      const uint32_t g = (a == 0 ? m0 : n0) + row, k = k0 + (kVec ? 4 * j : j);
+      const uint32_t* base = a == 0 ? words : a == 1 ? weights : mask;
+      const bool ok = g < (a == 0 ? batch : n_out) && k < n_words;
+      const uint32_t* src = ok ? base + g * n_words + k : base;
+      uint32_t* dst = tiles + (s * 3 + a) * kArray + row * kTileStride + (kVec ? 4 * j : j);
+      if (kVec) {
+        cp_async16(dst, src, ok ? 16u : 0u);
+      } else {
+        cp_async4(dst, src, ok ? 4u : 0u);
+      }
+    }
+    cp_async_commit();
+  };
+
+  uint32_t cnt[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cnt[i][j] = 0;
+  }
+  const uint32_t stages = (n_words + kTileWords - 1) / kTileWords;
+  stage(0, 0);
+  for (uint32_t c = 0; c < stages; ++c) {
+    if (c + 1 < stages) {
+      stage(c + 1, (c + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage c is in for every thread
+    const uint32_t* xs = tiles + ((c & 1) * 3) * kArray;
+    const uint32_t* ws = xs + kArray;
+    const uint32_t* ms = xs + 2 * kArray;
+#pragma unroll
+    for (int kq = 0; kq < kTileWords / 4; ++kq) {
+      uint4 x[4], w[4], m[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = *reinterpret_cast<const uint4*>(xs + (tm + 16 * i) * kTileStride + 4 * kq);
+        w[i] = *reinterpret_cast<const uint4*>(ws + (4 * tn + i) * kTileStride + 4 * kq);
+        m[i] = *reinterpret_cast<const uint4*>(ms + (4 * tn + i) * kTileStride + 4 * kq);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cnt[i][j] += xnor_popc4(x[i], w[j], m[j]);
+      }
+    }
+    __syncthreads();  // every thread is done with stage c before stage c + 2 overwrites it
+  }
+
+  const uint32_t n = n0 + 4 * tn;
+  uint32_t th[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) th[j] = n + j < n_out ? __ldg(thr + n + j) : 0u;
+  const bool whole = (n_out & 3u) == 0 && n + 3 < n_out && (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t b = m0 + tm + 16 * i;
+    if (b >= batch) continue;
+    int* o = out + b * n_out + n;
+    if (whole) {
+      *reinterpret_cast<int4*>(o) = make_int4(cnt[i][0] >= th[0], cnt[i][1] >= th[1], cnt[i][2] >= th[2],
+                                              cnt[i][3] >= th[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (n + j < n_out) o[j] = cnt[i][j] >= th[j] ? 1 : 0;
+      }
+    }
+  }
+}
+
 // Blocks of a quad-route launch: a whole number of packets' quads a block,
 // enough blocks to cover the batch, at most kMaxBlocks (they stride).
 inline uint32_t quad_blocks(uint32_t batch, uint32_t quads) {
@@ -318,6 +437,36 @@ extern "C" int packed_layer_cached(const void* words, const void* weights, const
                                    void* stream) {
   return launch_general<false>(words, weights, mask, thr, out, batch, n_out, n_words, 0,
                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int packed_layer_tiled(const void* words, const void* weights, const void* mask,
+                                  const void* thr, void* out, int batch, int n_out, int n_words,
+                                  void* stream) {
+  if (batch <= 0 || n_out <= 0 || n_words <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((batch + kTileRows - 1) / kTileRows, (n_out + kTileRows - 1) / kTileRows);
+  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = n_words % 4 == 0 && (reinterpret_cast<uintptr_t>(words) & 15u) == 0 &&
+                   (reinterpret_cast<uintptr_t>(weights) & 15u) == 0 &&
+                   (reinterpret_cast<uintptr_t>(mask) & 15u) == 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const uint32_t*>(words);
+  const auto* wt = static_cast<const uint32_t*>(weights);
+  const auto* mk = static_cast<const uint32_t*>(mask);
+  const auto* th = static_cast<const uint32_t*>(thr);
+  auto* o = static_cast<int*>(out);
+  int rc;
+  if (vec) {
+    rc = allow_shared_bytes(packed_layer_tiled_kernel<true>, kTiledSharedBytes);
+    if (rc) return rc;
+    packed_layer_tiled_kernel<true><<<grid, kTiledThreads, kTiledSharedBytes, s>>>(w, wt, mk, th, o, batch, n_out,
+                                                                                  n_words);
+  } else {
+    rc = allow_shared_bytes(packed_layer_tiled_kernel<false>, kTiledSharedBytes);
+    if (rc) return rc;
+    packed_layer_tiled_kernel<false><<<grid, kTiledThreads, kTiledSharedBytes, s>>>(w, wt, mk, th, o, batch, n_out,
+                                                                                   n_words);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int packed_layer_routed_general(const void* words, const void* ids, const void* weights,

@@ -20,9 +20,12 @@ CUDA tensor launches one of three kernels, chosen by :func:`route`:
 * ``"general"``: every other layer (FIVE_TUPLE's 2-neuron output layer, wider
   layers, misaligned views) whose tables fit one block's shared memory, one
   thread per output, tables staged in shared memory;
-* ``"cached"``: the same kernel for tables past one block's shared memory
-  (the block-diagonal layer of 32 merged tenants), read through the
-  read-only cache.
+* ``"tiled"``: tables past one block's shared memory (the block-diagonal
+  layers of 32 and 128 merged tenants): a binary GEMM tile of 64 packets x
+  64 neurons a block, K staged in shared memory, a 4 x 4 tile of counts a
+  thread;
+* ``"cached"`` (forced only): the general kernel without the staging, the
+  tables read through the read-only cache; the design ``"tiled"`` replaced.
 
 Each launch is counted in ``packed_layer.launches`` and, by route, in
 ``packed_layer.launches_by_route``.
@@ -52,7 +55,7 @@ from repro_torch.roofline import kernels as costs, ops as op_counts
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-ROUTES = ("quad", "general", "cached")
+ROUTES = ("quad", "general", "tiled", "cached")
 ROUTED_ROUTES = ("quad", "general")
 _ENTRY = {path: f"packed_layer_{path}" for path in ROUTES}
 _ROUTED_ENTRY = {path: f"packed_layer_routed_{path}" for path in ROUTED_ROUTES}
@@ -71,7 +74,7 @@ _MAX_INDEX = 1 << 31
 def route(words: torch.Tensor, weights: torch.Tensor) -> str:
     """The kernel a CUDA launch on these (contiguous) operands takes:
     ``"quad"``, else ``"general"`` where the weights, masks and thresholds
-    fit one block's shared memory, else ``"cached"``.  Pure: it reads shapes
+    fit one block's shared memory, else ``"tiled"``.  Pure: it reads shapes
     and ``data_ptr`` only, so it can be asked on any device."""
     n_out, n_words = weights.shape
     if (n_out % 4 == 0 and 0 < n_out <= QUAD_MAX_OUT and n_words in QUAD_WORDS
@@ -79,7 +82,7 @@ def route(words: torch.Tensor, weights: torch.Tensor) -> str:
         return "quad"
     if (2 * n_out * n_words + n_out) * 4 <= _build.MAX_SHARED_BYTES:
         return "general"
-    return "cached"
+    return "tiled"
 
 
 def routed_route(words: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor,

@@ -296,22 +296,57 @@ def test_packed_layer_routes_match_plain(cuda, n_out, n_words, batch):
 
 
 # Tables past one block's shared memory ((2 * n_out * n_words + n_out) * 4
-# bytes over 232,448) take the cached route, which reads them through the
-# read-only cache; the general route, forced, refuses them.  916 x 32 words
-# is the block-diagonal layer of 32 merged tenants.
-@pytest.mark.parametrize("n_out,n_words", [(916, 32), (1030, 29), (600, 48)])
+# bytes over 232,448) take the tiled route; the cached route, forced, gives
+# the same bits, and the general route, forced, refuses them.  916 x 32 words
+# is the block-diagonal layer of 32 merged tenants, 3540 x 128 and 1510 x 150
+# those of 128; 1030 x 29 has ragged K (4-byte staging) and 1030 % 64 a
+# ragged last tile; 1001 packets a ragged last tile of packets.
+@pytest.mark.parametrize("n_out,n_words", [(916, 32), (1030, 29), (600, 48), (3540, 128), (1510, 150)])
 @pytest.mark.parametrize("batch", [1, 1001])
-def test_packed_layer_cached_route_past_shared_memory(cuda, n_out, n_words, batch):
+def test_packed_layer_tiled_route_past_shared_memory(cuda, n_out, n_words, batch):
     assert (2 * n_out * n_words + n_out) * 4 > 232448
     rng = np.random.default_rng(n_out + n_words + batch)
     args = _layer_operands(rng, batch, n_out, n_words, 3)
     fn = packed_layer.packed_layer
     dev = [a.to(cuda) for a in args]
-    got = _launched(fn, "cached", lambda: fn(*dev))
-    assert torch.equal(got.cpu(), packed_layer.packed_layer_plain(*args))
+    want = packed_layer.packed_layer_plain(*args)
+    got = _launched(fn, "tiled", lambda: fn(*dev))
+    assert torch.equal(got.cpu(), want)
     assert not got[:, n_out - 3:].any()
+    cached = _launched(fn, "cached", lambda: packed_layer._launch(*dev, torch.empty_like(got), "cached"))
+    assert torch.equal(cached.cpu(), want)
     with pytest.raises(RuntimeError, match="CUDA error"):
         packed_layer._launch(*dev, torch.empty_like(got), "general")
+
+
+# The tiled route forced on other layers: a ragged n_out (one int at a time
+# at the edge), one neuron, misaligned words, weights or masks (4-byte
+# staging) and an output whose rows are not whole int4s; batch 0 launches
+# nothing; a layer of no words is refused.
+@pytest.mark.parametrize("n_out,n_words", [(2, 1), (13, 5), (65, 4), (916, 32), (1, 128)])
+@pytest.mark.parametrize("batch", [0, 1, 1001])
+def test_packed_layer_tiled_route_edges(cuda, n_out, n_words, batch):
+    rng = np.random.default_rng(n_out * 3 + n_words + batch)
+    args = _layer_operands(rng, max(batch, 1), n_out, n_words, min(2, n_out - 1))
+    args[0] = args[0][:batch]
+    dev = [a.to(cuda) for a in args]
+    want = packed_layer.packed_layer_plain(*args)
+    fn = packed_layer.packed_layer
+    if batch == 0:
+        before = dict(fn.launches_by_route)
+        assert fn(*dev).shape == (0, n_out) and fn.launches_by_route == before
+        return
+    tiled = lambda ops: packed_layer._launch(*ops, torch.empty((batch, n_out), dtype=torch.int32,  # noqa: E731
+                                                               device=cuda), "tiled")
+    assert torch.equal(_launched(fn, "tiled", lambda: tiled(dev)).cpu(), want)
+    for which in range(3):
+        ops = list(dev)
+        ops[which] = _shifted(dev[which], 4)
+        assert torch.equal(_launched(fn, "tiled", lambda: tiled(ops)).cpu(), want)
+    empty = [torch.zeros((batch, 0), dtype=torch.int32, device=cuda),
+             *(torch.zeros((n_out, 0), dtype=torch.int32, device=cuda) for _ in range(2)), dev[3]]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        packed_layer._launch(*empty, torch.empty((batch, n_out), dtype=torch.int32, device=cuda), "tiled")
 
 
 # The cached route on tables that fit shared memory too: the same bits as the
@@ -954,27 +989,30 @@ def _benchmark_pool_scheduler(count):
 def test_merged_op_table_beyond_shared_memory_serves(cuda, layout):
     """32 tenants of benchmarks/multitenant_bench.py merged: 1,833
     registers, more than one packet's share of a block's shared memory at
-    the kernel's smallest block.  The op-table dispatch serves them on the
-    global route, every launch, and each tenant gets what the CPU scheduler
-    gives it (the packed dispatch too)."""
+    the shared route's smallest block.  The op-table dispatch serves them on
+    the split route, every launch, and each tenant gets what the CPU
+    scheduler gives it (the packed dispatch too, its concat layer on the
+    tiled route)."""
     sched, specs = _benchmark_pool_scheduler(32)
     lp = sched.merged(layout).lowered
     assert lp.num_regs == 1833
     plan, _ = optable_exec.prepare(tuple(executor._i32(getattr(lp, n)) for n in TABLES), lp.num_regs)
-    assert optable_exec.route(plan, lp.num_regs) == "global"
+    assert optable_exec.route(plan, lp.num_regs) == "split"
     pair = traffic.mixed_tenant_generate(specs, 512, seed=0)
     fn = optable_exec.optable_run
     before = (fn.launches, dict(fn.launches_by_route))
     gpu = sched.run(pair, merged=layout, backend="jnp", chunk_size=200, device=cuda)
     launched = fn.launches - before[0]
     assert launched == gpu.chunks + 1  # every chunk and the warm call
-    assert {p: fn.launches_by_route[p] - before[1][p] for p in before[1]} == {"shared": 0, "global": launched}
+    assert {p: fn.launches_by_route[p] - before[1][p] for p in before[1]} == {
+        "shared": 0, "split": launched, "global": 0}
     cpu = sched.run(pair, merged=layout, backend="jnp", chunk_size=200, device="cpu")
     layer = packed_layer.packed_layer
     layer_before = dict(layer.launches_by_route)
     packed = sched.run(pair, merged=layout, backend="packed", chunk_size=200, device=cuda)
     if layout == "concat":  # its block-diagonal 916 x 32-word layer is past shared memory
-        assert layer.launches_by_route["cached"] - layer_before["cached"] == packed.chunks + 1
+        assert layer.launches_by_route["tiled"] - layer_before["tiled"] == packed.chunks + 1
+        assert layer.launches_by_route["cached"] == layer_before["cached"]
     for t in range(32):
         a, b = gpu.stats_for(t), cpu.stats_for(t)
         assert (a.packets, a.served, a.dropped) == (b.packets, b.served, b.dropped)
@@ -1069,19 +1107,46 @@ def test_optable_global_route_matches_plain(cuda, program, batch):
     plan, records = optable_exec.prepare(tables, num_regs)
     if program in FUZZ:  # FOLD continuations and deferred rows are on the path
         assert (tables[TABLES.index("first_write")] == 0).any() and plan.deferred.any()
-    assert optable_exec.route(plan, num_regs) == ("global" if program.endswith("_wide") else "shared")
+    assert optable_exec.route(plan, num_regs) == ("split" if program.endswith("_wide") else "shared")
     fn = optable_exec.optable_run
     before = dict(fn.launches_by_route)
     out = optable_exec._launch(regs, plan, records, "global")
     want = optable_exec.optable_run_plain(regs, *tables)
     torch.cuda.synchronize()
-    assert {p: fn.launches_by_route[p] - before[p] for p in before} == {"shared": 0, "global": int(batch > 0)}
+    assert {p: fn.launches_by_route[p] - before[p] for p in before} == {
+        "shared": 0, "split": 0, "global": int(batch > 0)}
     assert out.shape == regs.shape and out.is_contiguous()
     assert torch.equal(out, want)
     if program.endswith("_wide"):
-        assert torch.equal(fn(regs, *tables), want)  # the public wrapper takes the global route itself
         with pytest.raises(ValueError, match="shared memory"):
             optable_exec._launch(regs, plan, records, "shared")
+
+
+# The split route, forced, on every case of the global route's test: FOLD
+# chains, rows that write what an earlier row read, pads into a nonzero null
+# register.  The wide programs (3,000 registers) take it by themselves.
+@pytest.mark.parametrize("program", ["hand", *FUZZ, "headline", "five_tuple", "hand_wide", "fuzz_a_wide"])
+@pytest.mark.parametrize("batch", [0, 1, 7, 1001, 32768 + 7])
+def test_optable_split_route_matches_plain(cuda, program, batch):
+    tables, num_regs = _global_program(program, cuda)
+    regs = _any_regs(num_regs, batch, cuda, seed=batch + 2)
+    plan, _ = optable_exec.prepare(tables, num_regs)
+    split, split_records = optable_exec.prepare_split(tables, num_regs)
+    want = optable_exec.optable_run_plain(regs, *tables)
+    fn = optable_exec.optable_run
+    before = dict(fn.launches_by_route)
+    out = optable_exec._launch(regs, split, split_records, "split")
+    torch.cuda.synchronize()
+    assert {p: fn.launches_by_route[p] - before[p] for p in before} == {
+        "shared": 0, "split": int(batch > 0), "global": 0}
+    assert out.shape == regs.shape and out.is_contiguous()
+    assert torch.equal(out, want)
+    if program.endswith("_wide"):
+        assert optable_exec.route(plan, num_regs) == "split"
+        before = dict(fn.launches_by_route)
+        assert torch.equal(fn(regs, *tables), want)  # the public wrapper takes the split route itself
+        assert {p: fn.launches_by_route[p] - before[p] for p in before} == {
+            "shared": 0, "split": int(batch > 0), "global": 0}
 
 
 def test_optable_global_route_indexes_past_2_31(cuda):
@@ -1097,13 +1162,58 @@ def test_optable_global_route_indexes_past_2_31(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     regs = torch.randint(0, 1 << 30, (num_regs, batch), dtype=torch.int32, device=cuda, generator=gen)
     regs[top:] = _any_regs(6, batch, cuda, seed=5)
-    plan, _ = optable_exec.prepare(tables, num_regs)
+    plan, records = optable_exec.prepare(tables, num_regs)
     assert optable_exec.route(plan, num_regs) == "global" and num_regs + plan.max_deferred == 1 << 16
+    with pytest.raises(ValueError, match="shared memory"):  # a forced split launch cannot hold the file
+        optable_exec.prepare_split(tables, num_regs)
     out = optable_exec.optable_run(regs, *tables)
     want = optable_exec.optable_run_plain(regs[top:].contiguous(), *_hand_tables(cuda))
     torch.cuda.synchronize()
     assert torch.equal(out[top:], want)
     assert torch.equal(out[:top], regs[:top])
+
+
+@pytest.mark.parametrize("count", [32, 128])
+@pytest.mark.parametrize("layout", ["interleave", "concat"])
+def test_wide_merges_take_split_at_chunk_1024(cuda, count, layout):
+    """The 32- and 128-tenant merges of benchmarks/multitenant_bench.py's
+    pool over a chunk of 1024 routed packets: the wrapper takes the split
+    route, bit-exact with the plain version (the global route, forced, too)."""
+    sched, specs = _benchmark_pool_scheduler(count)
+    mp = sched.merged(layout)
+    lp = mp.lowered
+    tids, bits = traffic.mixed_tenant_generate(specs, 1024, seed=count)
+    idx = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(cuda)  # noqa: E731
+    regs = executor.parse_packets_routed(torch.from_numpy(bits).to(cuda), torch.from_numpy(tids).to(cuda),
+                                         idx(mp.in_slot), idx(mp.in_shift), idx(mp.in_valid),
+                                         num_regs=lp.num_regs)
+    regs[-1] = 0x5EED  # a nonzero null register
+    tables = tuple(executor._i32(getattr(lp, n)).to(cuda) for n in TABLES)
+    plan, records = optable_exec.prepare(tables, lp.num_regs)
+    assert optable_exec.route(plan, lp.num_regs) == "split"
+    fn = optable_exec.optable_run
+    out = _launched(fn, "split", lambda: fn(regs, *tables))
+    want = optable_exec.optable_run_plain(regs, *tables)
+    assert torch.equal(out, want)
+    assert torch.equal(_launched(fn, "global", lambda: optable_exec._launch(regs, plan, records, "global")), want)
+
+
+def test_optable_second_split_launch_makes_no_host_sync(cuda):
+    """The split route's plan is made and uploaded at the first launch;
+    the second reads nothing back and copies nothing."""
+    tables, num_regs = _global_program("fuzz_a_wide", cuda)
+    regs = _any_regs(num_regs, 1000, cuda, seed=4)
+    fn = optable_exec.optable_run
+    fn(regs, *tables)
+    torch.cuda.synchronize()
+    before = dict(fn.launches_by_route)
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        out = fn(regs, *tables)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert {p: fn.launches_by_route[p] - before[p] for p in before} == {"shared": 0, "split": 1, "global": 0}
+    assert torch.equal(out, optable_exec.optable_run_plain(regs, *tables))
 
 
 # ---------------------------------------------------------------------------

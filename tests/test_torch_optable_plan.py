@@ -1,12 +1,16 @@
-"""The op-table kernel's plan (``kernels/optable_exec.py::make_plan``) on the CPU.
+"""The op-table kernel's plans (``kernels/optable_exec.py::make_plan`` and
+``make_split``) on the CPU.
 
 The CUDA kernel walks the plan's records, not the raw tables: pad rows cut,
 the rows whose destination a later row reads deferred to the element's end,
 the others written back at once.  Here a plain numpy emulation decodes those same
 records as the kernel does (row groups, immediate and deferred write-back,
 the pads' register zeroed) and must give exactly what ``optable_run_plain``
-and the reference Pallas kernel in interpret mode give.  The kernel itself
-is held against the plain version on a card by ``tests/test_torch_cuda.py``.
+and the reference Pallas kernel in interpret mode give.  So must a second
+emulation, of the split route's plan (:func:`run_split`), on the same
+programs; ``tests/test_torch_optable_split.py`` holds the rest of that
+route.  The kernels themselves are held against the plain version on a card
+by ``tests/test_torch_cuda.py``.
 """
 from __future__ import annotations
 
@@ -103,6 +107,59 @@ def run_planned(plan, regs: np.ndarray) -> np.ndarray:
     return file[:num_regs]
 
 
+def _split(lp):
+    """The split route's plan of ``lp``'s tables."""
+    return topt.make_split(_plan(lp), tuple(getattr(lp, n) for n in TABLES))
+
+
+def _phase(sp, k):
+    """Phase ``k``'s header, lane starts, row records and write list, as
+    the split kernel finds them."""
+    units = sp.records.reshape(-1, 4)
+    at = int(sp.records[k])
+    chains, n = int(units[at, 0]), int(units[at, 1])
+    starts = sp.records[4 * (at + 1):4 * (at + 1) + sp.threads + 1].astype(np.int64)
+    rows_at = at + 1 + (sp.threads + 4) // 4
+    rows = units[rows_at:rows_at + n]
+    write = sp.records[4 * (rows_at + n):4 * (rows_at + n) + chains]
+    return chains, starts, rows, write
+
+
+def run_split(sp, regs: np.ndarray) -> np.ndarray:
+    """What the split kernel does with ``sp.records`` over a (num_regs,
+    batch) uint32 register file: per phase, each lane sums its rows into
+    its chains' values, reading only the file as it entered the phase; then
+    each chain's value is stored (first write) or added into its register.
+    Asserts the plan's structure on the way: lanes tile the rows in order,
+    every chain lies whole in one lane and ends exactly once, and a phase's
+    chains write distinct registers."""
+    file = regs.copy()
+    with np.errstate(over="ignore"):
+        for k in range(sp.num_phases):
+            chains, starts, rows, write = _phase(sp, k)
+            assert starts[0] == 0 and starts[-1] == len(rows) and (np.diff(starts) >= 0).all()
+            assert chains <= sp.chains and chains <= topt.SPLIT_WRITES * sp.threads
+            assert len(np.unique(write & 0xFFFF)) == chains
+            values = [None] * chains
+            owner = {}
+            for lane in range(sp.threads):
+                cur = np.zeros(file.shape[1], np.uint32)
+                a, b = int(starts[lane]), int(starts[lane + 1])
+                for r in rows[a:b]:
+                    op, chain = (int(r[1]) >> 16) & 0xF, int(r[1]) & 0xFFFF
+                    assert owner.setdefault(chain, lane) == lane  # a chain whole to one lane
+                    cur = cur + (_alu(op, file[r[0] & 0xFFFF], file[r[0] >> 16], r[2]) & r[3])
+                    if (r[1] >> 20) & 1:
+                        assert values[chain] is None
+                        values[chain], cur = cur, np.zeros_like(cur)
+                assert a == b or (rows[b - 1][1] >> 20) & 1  # a lane ends on a chain's last row
+            assert all(v is not None for v in values)
+            for c, ent in enumerate(write):
+                d = int(ent) & 0xFFFF
+                file[d] = values[c] if (ent >> 16) & 1 else file[d] + values[c]
+    return file
+
+
 def _plain(lp, regs: np.ndarray) -> np.ndarray:
     tables = [torch.from_numpy(np.ascontiguousarray(getattr(lp, n)).view(np.int32)) for n in TABLES]
     out = topt.optable_run_plain(tb.u32_to_i32(torch.from_numpy(regs.astype(np.int64))), *tables)
@@ -159,6 +216,7 @@ def test_planned_schedule_matches_plain_and_pallas_on_the_paper_models(name):
     got = run_planned(_plan(lp), regs)
     np.testing.assert_array_equal(got, _plain(lp, regs))
     np.testing.assert_array_equal(got, _pallas(lp, regs))
+    np.testing.assert_array_equal(run_split(_split(lp), regs), got)
 
 
 @given(program_cases(max_layers=2, max_width=40))
@@ -171,6 +229,7 @@ def test_planned_schedule_matches_plain_and_pallas_on_random_programs(case):
     got = run_planned(_plan(lp), regs)
     np.testing.assert_array_equal(got, _plain(lp, regs))
     np.testing.assert_array_equal(got, _pallas(lp, regs))
+    np.testing.assert_array_equal(run_split(_split(lp), regs), got)
 
 
 def test_stacked_hops_with_whole_pad_elements():
@@ -179,7 +238,9 @@ def test_stacked_hops_with_whole_pad_elements():
     (every row ``SHR_AND_IMM`` into the null register, mask 0, first_write
     1).  Their plan has no true rows and zeroes the null register; hop by
     hop the planned schedule equals the plain version (and Pallas on the
-    padded hop), and the chain equals the unsliced program."""
+    padded hop), and the chain equals the unsliced program.  The split
+    route's plan gives the same hop by hop, its pads leaving the null
+    register 0."""
     lp = PAPER["FIVE_TUPLE/rmt"]()
     hops = [lp.slice_elements(a, min(a + 32, lp.num_elements)) for a in range(0, lp.num_elements, 32)]
     assert [h.num_elements for h in hops] == [32, 32, 32, 26]
@@ -192,6 +253,8 @@ def test_stacked_hops_with_whole_pad_elements():
         plan = topt.make_plan(*(getattr(plane, n) for n in TABLES), stacked.num_regs)
         got = run_planned(plan, state)
         np.testing.assert_array_equal(got, _plain(plane, state))
+        np.testing.assert_array_equal(run_split(topt.make_split(plan, tuple(getattr(plane, n) for n in TABLES)),
+                                                state), got)
         if h == stacked.num_hops - 1:
             np.testing.assert_array_equal(plan.rows[26:], 0)
             np.testing.assert_array_equal(plan.zero_reg[26:], lp.null_slot)
@@ -199,6 +262,7 @@ def test_stacked_hops_with_whole_pad_elements():
             np.testing.assert_array_equal(plan.records[26:, 0:2], 0)  # no records, nothing deferred
             np.testing.assert_array_equal(got, _pallas(plane, state))
         state = got
+    assert not state[-1].any()
     np.testing.assert_array_equal(state, _plain(lp, regs))
 
 

@@ -212,12 +212,15 @@ def test_packed_layer_misaligned_words(nbytes, n_words, want):
 
 
 # Tables past one block's shared memory ((2 * n_out * n_words + n_out) * 4
-# bytes over 232,448) are read through the read-only cache: 916 x 32 words is
-# the block-diagonal layer of 32 merged tenants.
-@pytest.mark.parametrize("n_out,n_words", [(916, 32), (1030, 29), (600, 48)])
-def test_packed_layer_tables_past_shared_memory_take_cached(n_out, n_words):
+# bytes over 232,448) take the tiled GEMM: 916 x 32 words is the
+# block-diagonal layer of 32 merged tenants, 3540 x 128 and 1510 x 150 those
+# of 128 (misaligned views too).
+@pytest.mark.parametrize("n_out,n_words", [(916, 32), (1030, 29), (600, 48), (3540, 128), (1510, 150)])
+def test_packed_layer_tables_past_shared_memory_take_tiled(n_out, n_words):
     assert (2 * n_out * n_words + n_out) * 4 > _build.MAX_SHARED_BYTES
-    assert tlayer.route(torch.zeros((7, n_words), dtype=torch.int32), _layer(n_out, n_words)) == "cached"
+    assert tlayer.route(torch.zeros((7, n_words), dtype=torch.int32), _layer(n_out, n_words)) == "tiled"
+    words = _offset((7, n_words), torch.int32, 4)
+    assert tlayer.route(words, _layer(n_out, n_words)) == "tiled"
 
 
 def test_packed_layer_general_up_to_shared_memory():
@@ -225,12 +228,12 @@ def test_packed_layer_general_up_to_shared_memory():
     232,448 B, 868 do not."""
     words = torch.zeros((7, 33), dtype=torch.int32)
     assert tlayer.route(words, _layer(867, 33)) == "general"
-    assert tlayer.route(words, _layer(868, 33)) == "cached"
+    assert tlayer.route(words, _layer(868, 33)) == "tiled"
 
 
 def test_packed_layer_cpu_calls_launch_nothing():
     fn = tlayer.packed_layer
-    assert set(fn.launches_by_route) == {"quad", "general", "cached"}
+    assert set(fn.launches_by_route) == {"quad", "general", "tiled", "cached"}
     before = (fn.launches, dict(fn.launches_by_route))
     for n_out, n_words in ((32, 2), (2, 1), (9, 5), (916, 32)):
         out = fn(torch.zeros((7, n_words), dtype=torch.int32), _layer(n_out, n_words),
@@ -302,7 +305,8 @@ def test_packed_layer_routed_checks_ids_on_the_cpu():
 
 # optable_run: the shared route while a packet's registers and scratch rows
 # (and the block's two staged elements) fit shared memory at 32 packets a
-# block, else the global route.
+# block, else the split route while 4 packets' registers and a value per
+# chain of an element do, else the global route.
 TABLES = ("opcode", "dst", "src0", "src1", "imm0", "imm1", "mask", "first_write")
 TENANT_SHAPES = [(32, 64, 32), (16, 32, 8), (32, 16), (8, 12, 6), (16, 8, 4), (32, 32, 4)]
 
@@ -352,10 +356,10 @@ def test_optable_eight_tenant_merge_takes_shared(layout):
 
 
 @pytest.mark.parametrize("layout,scratch", [("interleave", 916), ("concat", 64)])
-def test_optable_thirty_two_tenant_merge_takes_global(layout, scratch):
+def test_optable_thirty_two_tenant_merge_takes_split(layout, scratch):
     plan, num_regs = _merged_plan(32, layout)
     assert (num_regs, plan.max_deferred) == (1833, scratch)
-    assert topt.route(plan, num_regs) == "global"
+    assert topt.route(plan, num_regs) == "split"
     with pytest.raises(ValueError, match="1833 registers"):  # a forced shared launch cannot fit
         topt.plan_threads(plan, num_regs)
 
@@ -373,12 +377,17 @@ def _one_row_plan(num_regs):
 def test_optable_synthetic_file_just_past_the_limit_takes_global():
     """At 32 packets a block a register costs 128 B of shared memory beside
     the 2 x 33 x 16 B of staged records: 1,807 registers fit 232,448 B,
-    1,808 do not."""
+    1,808 do not and take the split route, where a register and a chain's
+    value cost 16 B each at 4 packets a block: up to 14,527 registers with
+    the one row's chain; past that, the global route."""
     fits = (_build.MAX_SHARED_BYTES - 2 * 33 * 16) // (4 * 32)
     assert fits == 1807
-    for num_regs, want in ((fits, "shared"), (fits + 1, "global"), (60000, "global")):
+    split = _build.MAX_SHARED_BYTES // 16 - 1
+    assert split == 14527
+    for num_regs, want in ((fits, "shared"), (fits + 1, "split"), (split, "split"), (split + 1, "global"),
+                           (60000, "global")):
         plan = _one_row_plan(num_regs)
-        assert plan.stride == 33 and plan.max_deferred == 0
+        assert plan.stride == 33 and plan.max_deferred == 0 and plan.max_chains == 1
         assert topt.route(plan, num_regs) == want
 
 
@@ -391,7 +400,7 @@ def test_optable_global_threads_spread_small_batches():
 
 def test_optable_cpu_calls_launch_nothing():
     fn = topt.optable_run
-    assert set(fn.launches_by_route) == {"shared", "global"}
+    assert set(fn.launches_by_route) == {"shared", "split", "global"}
     before = (fn.launches, dict(fn.launches_by_route))
     plan = _one_row_plan(4)
     t = {n: torch.zeros((1, 1), dtype=torch.int32) for n in TABLES}
