@@ -105,15 +105,21 @@ What it does, in order:
    their bound), and
    ``packed_layer`` on each block-diagonal layer of the 8- and 32-tenant
    merges on the route it takes (``tiled``, held with ``cached``, forced,
-   and on the ``concat`` layout timed in turns with it and its bound);
+   and on the ``concat`` layout timed in turns with it and its bound; the
+   8-tenant ``concat`` layers on ``general``, timed in turns with ``tiled``,
+   forced, and their bound, as are the (8, 12, 6) tenant's 12 -> 6 layer at
+   chunk 1024 and, in step 3, FIVE_TUPLE's 2-neuron output layer);
 9. the LM slice, on phi3-mini-3.8b at its published widths (weights from a
    fixed seed):
-   a. holds ``bnn_matmul_packed`` (bit for bit, at the decode and prefill
-      shapes of the model's three projection shapes, on the stream and the
-      tiled route, and at ragged K; one decode layer's seven launches also
-      timed as a replayed CUDA graph, in turns with the tiled route and with
-      ``torch.matmul`` of pre-signed bf16 operands, and both routes at M of
-      1 to 16),
+   a. holds ``bnn_matmul_packed`` (bit for bit, at the decode (M = 4,
+      stream), prefill (M = 17 and 128, mma) and scoring (M = 2048, mma)
+      shapes of the model's five projections, and on mma and tiled, forced,
+      at ragged M, N, Kw and k_bits, a misaligned view, all-ones and all-zero
+      words; one decode layer's seven launches also timed as a replayed
+      CUDA graph, in turns with the tiled route and with ``torch.matmul`` of
+      pre-signed bf16 operands, the three routes at M of 1 to 16, and a
+      prefill (M = 128) and a scoring (M = 2048) layer in turns: mma, tiled
+      forced, ``torch.matmul`` bf16 and ``torch._int_mm`` int8, with bounds),
       ``bnn_matmul_mxu`` (bit for bit, on its tma route at the model's shape
       and a ragged one, and on its staged route, each sign site also on
       planted subnormal signs) and ``flash_attention``
@@ -141,16 +147,18 @@ What it does, in order:
    a. holds ``bnn_matmul_packed_experts`` bit for bit against its plain
       version at qwen3-moe-30b-a3b's and deepseek-v2-236b's gate and down
       shapes at capacities of 1, 10 and 160 slots, at ragged K and odd E,
-      each case asserting its route; times one qwen3 decode layer's three
-      launches as a replayed CUDA graph over 4 layers' weights, in turns
-      with the tiled route and with ``torch.bmm`` of pre-signed bf16
-      operands, beside the plain version, and one scoring layer (C = 160);
+      each case asserting its route (the mma ones held on tiled, forced,
+      too); times one qwen3 decode layer's three launches as a replayed CUDA
+      graph over 4 layers' weights, in turns with the tiled route and with
+      ``torch.bmm`` of pre-signed bf16 operands, beside the plain version,
+      and one scoring layer (C = 160) in turns: mma, tiled forced,
+      ``torch.bmm`` bf16 and ``torch._int_mm`` int8, with its bound;
    b. qwen3-moe-30b-a3b at its published config (48 layers, 128 experts
       top-8): the ``Engine`` serves 8 requests as in 9c, each prefill and
       decode step making per layer 4 ``bnn_matmul_packed``, 3
       ``bnn_matmul_packed_experts`` and 7 bf16 ``bitpack`` launches (every
       decode-step launch on the stream route), then ``forward`` scores 2048
-      tokens with flash (D = 128, tma; every expert launch tiled);
+      tokens with flash (D = 128, tma; every expert launch on mma);
    c. deepseek-v2-236b at published widths and depth (60 layers, MLA, 160
       experts top-6 and 2 shared): the ``Engine`` serves 4 requests, per
       layer 3 ``bnn_matmul_packed`` (the shared experts; MLA projections
@@ -171,7 +179,7 @@ What it does, in order:
    against their plain versions at its own shapes (``check_packed_shapes``:
    bf16 ``bitpack`` on the vec route and ``bnn_matmul_packed`` at a decode
    step's M = 4 on the stream route, a prompt's M = 384 and scoring's
-   M = 2048 on the tiled route, for each (K, N) of zamba2's shared block,
+   M = 2048 on the mma route, for each (K, N) of zamba2's shared block,
    internvl2 and hubert):
    a. mamba2-1.3b (48 layers, d_model 2048, state 128, 64 SSM heads): the
       ``Engine`` serves 8 requests as in 9c and ``forward`` scores 2048
@@ -192,7 +200,7 @@ What it does, in order:
       ``flash_attention`` launch a layer on the tma route and 6 packed
       launches a layer (GELU FFN 2, attention 4);
    every run's launches exact (``call_launches``), every decode-step GEMM on
-   the stream route, every scoring GEMM tiled;
+   the stream route, every scoring GEMM on mma;
 12. trains the LMs (``drive_training``; every run launches no kernel: the
    training forward is the plain path, as the reference's reaches no
    Pallas kernel):
@@ -219,7 +227,7 @@ What it does, in order:
    phi3-mini-3.8b decode_32k (all 32 layers) and prefill_32k (4 layers)
    with ``bnn_packed`` on ``ffn`` and ``attn_proj`` (the hillclimb's C1
    and C2: every packed GEMM of the decode cell on the stream route, of
-   the prefill cell tiled), zamba2-1.2b long_500k uncut (a 524,288-position
+   the prefill cell on mma), zamba2-1.2b long_500k uncut (a 524,288-position
    KV cache) and hubert-xlarge train_4k at 4 layers (``frames``, the
    encoder-only path, no kernel);
    prints each cell's batch against its global batch, step s, the peak
@@ -228,15 +236,19 @@ What it does, in order:
    and mfu in (0, 1], the counted step's launches those the count saw;
    then ``bitpack`` and ``bnn_matmul_packed`` at the prefill cell's own M
    (its batch x 32768 rows) for each of phi3's (K, N), the GEMM on the
-   tiled route, every row held against the plain versions
-   (``check_prefill_shapes``);
+   mma route, every row held against the plain versions and timed beside
+   its bound (``check_prefill_shapes``);
 14. prints one JSON line of per-kernel numbers, then the status line.  The
    packet kernels' ``launches`` sum their ``launches_by_path`` (the fleet
    phase's runs under ``fleet``), and ``launches_by_route`` splits the same
    launches by route; the LM kernels' ``launches`` are phi3's (the expert
    GEMM's qwen3's) serving or scoring run's, their ``launches_by_path``
    every LM run's (the bit-pack kernel's LM launches, through its
-   ``bitpack`` wrapper, in ``bitpack_launches_by_path``).  Every bound is
+   ``bitpack`` wrapper, in ``bitpack_launches_by_path``).  The packed
+   GEMMs' ``ms`` and ``library_ms`` are the decode layer's (stream, and
+   ``torch.matmul`` or ``torch.bmm``); every other time names its route or
+   yardstick (``*_ms_mma``, ``*_ms_tiled_forced``, ``*_library_ms_torch_*``,
+   ``*_ms_torch_int_mm``).  Every bound is
    ``repro_torch.roofline``'s: the kernels' bytes and operations
    (``roofline.kernels``) over the H100 peaks (``roofline.hw``).
 
@@ -575,6 +587,35 @@ def check_bitpack(dev, layer_inputs) -> dict:
     )
 
 
+def time_general_layer(label: str, args, rec: dict) -> int:
+    """``packed_layer`` on a layer the wrapper sends to the ``general`` route
+    (the first design: a thread per output), on it and on ``tiled``, forced,
+    both held against the plain version and timed in turns as replayed
+    graphs of CHUNK_REPS launches, beside the bound.  Records
+    ``ms_general_<label>``, ``ms_tiled_forced_<label>`` and
+    ``bound_ms_<label>`` in ``rec``; returns the max error."""
+    fn = packed_layer.packed_layer
+    (batch, n_words), n_out = args[0].shape, args[1].shape[0]
+    if packed_layer.route(*args[:2]) != "general":
+        raise AssertionError(f"{label}: routes to {packed_layer.route(*args[:2])}, not general")
+    want = packed_layer.packed_layer_plain(*args)
+    out = torch.empty_like(want)
+    err = max(same(f"packed_layer {label} ({n_out} x {n_words} words, {batch} packets, general)",
+                   routed(fn, "general", lambda: fn(*args)), want),
+              same(f"packed_layer {label} (tiled, forced)",
+                   routed(fn, "tiled", lambda: packed_layer._launch(*args, out, "tiled")), want))
+    t = graphs_in_turns({name: repeated(lambda name=name: packed_layer._launch(*args, out, name), CHUNK_REPS)
+                         for name in ("general", "tiled")})
+    b_ms, b_by = costs.packed_layer(batch, n_words, n_out).bound_ms()
+    rec[f"ms_general_{label}"] = t["general"] / CHUNK_REPS
+    rec[f"ms_tiled_forced_{label}"] = t["tiled"] / CHUNK_REPS
+    rec[f"bound_ms_{label}"] = b_ms
+    print(f"    packed_layer {label} ({n_out} x {n_words} words, {batch} packets): general "
+          f"{t['general'] / CHUNK_REPS} ms, tiled (forced) {t['tiled'] / CHUNK_REPS} ms a launch; bound {b_ms} ms "
+          f"({b_by})")
+    return err
+
+
 def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
     """``packed_layer`` against its plain version on the main path's layers
     (quad route), the scan plan's padded layers (pad neurons must never
@@ -647,6 +688,12 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
                             routed(fn, "tiled", lambda: packed_layer._launch(*args, out, "tiled")), plain_out))
         five_layers.append((args, out, path))
     stacked(five_lp, five_packets, "FIVE_TUPLE")
+    general = {}  # FIVE_TUPLE's output layer, where general serves
+    for args, out, path in five_layers:
+        if path == "general":
+            pl_out, pl_words = args[1].shape
+            err = max(err, time_general_layer(f"five_tuple_{pl_words}_words_to_{pl_out}_chunk_{CHUNK}", args,
+                                              general))
     # FIVE_TUPLE's layers per chunk on their routes and on tiled, forced.
     t5 = graphs_in_turns({name: repeated(lambda name=name: [
         packed_layer._launch(*args, out, path if name == "routes" else "tiled") for args, out, path in five_layers],
@@ -676,7 +723,7 @@ def check_packed_layer(dev, lp, layer_inputs, five) -> dict:
         max_abs_err=err, ms=t["quad"], old_route_ms=t["general"], tiled_route_ms=t["tiled"],
         cached_route_ms=t["cached"], five_tuple_ms=t5["routes"], five_tuple_tiled_ms=t5["tiled"],
         back_to_back_ms=back_to_back,
-        plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, **general,
     )
 
 
@@ -1362,6 +1409,8 @@ def check_merged_kernels(dev, count: int, sched: SwitchScheduler, tids, bits, re
             want = packed_layer.packed_layer_plain(*args)
             err = same(f"packed_layer merged {layout}, {count} tenants, layer {li} ({pl.n_out} out, "
                        f"{pl.n_words} words, {n} packets, {layer_path})", h, want)
+            if layer_path == "general" and count == 8 and layout == "concat":
+                err = max(err, time_general_layer(f"8_tenants_concat_layer_{li}_chunk_{n}", args, layer_rec))
             if layer_path == "tiled":
                 out = torch.empty_like(h)
                 err = max(err, same(f"packed_layer merged {layout}, {count} tenants, layer {li}, cached (forced)",
@@ -1487,6 +1536,15 @@ def drive_multitenant(dev, records: dict) -> None:
                          rows=(MT_CHUNK, CHUNK), path="split")
     check_merged_kernels(dev, MT_WIDE, scheds[MT_WIDE], *pools[MT_WIDE][1:], records, path="split",
                          layers=False)
+    # The (8, 12, 6) tenant's 12 -> 6 layer at chunk 1024, as the
+    # time-sliced packed dispatch serves it.
+    tenant = MT_SHAPES.index((8, 12, 6))
+    pl = pools[8][0].progs[tenant].lower().packed.layers[1]
+    bits12 = torch.randint(0, 2, (MT_CHUNK, pl.n_in), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    args = (bitpack.pack_bits_words(bits12.to(torch.int32)), executor._i32(pl.weights).to(dev),
+            executor._i32(pl.mask).to(dev), executor._i32(pl.thresholds).to(dev))
+    records["packed_layer"]["max_abs_err"] = max(records["packed_layer"]["max_abs_err"], time_general_layer(
+        f"tenant_{pl.n_in}_to_{pl.n_out}_chunk_{MT_CHUNK}", args, records["packed_layer"]))
     records["packed_layer_routed"] = check_packed_layer_routed(
         dev, {c: ([p.lower() for p in pools[c][0].progs], *pools[c][1:]) for c in (8, MT_WIDE, MT_OVER)})
 
@@ -1651,38 +1709,73 @@ DECODE_M = 4        # the Engine's slots: the M of every decode-step projection
 GRAPH_LAYERS = 4    # distinct layers' weights per graph: 57 MB, beyond the 50 MB L2
 
 
+def packed_operands(m: int, n: int, kw: int, k_bits: int, gen, dev) -> tuple:
+    """Random packed words, zero past ``k_bits`` in both operands, with an
+    all-ones and an all-zero row in each (where there are two rows)."""
+    x, w = random_words((m, kw), gen, dev), random_words((n, kw), gen, dev)
+    bit = torch.arange(32 * kw, device=dev).view(kw, 32)
+    keep = ((bit < k_bits).to(torch.int64) << torch.arange(32, device=dev)).sum(-1)
+    keep = bitops.u32_to_i32(keep)
+    x, w = x & keep, w & keep
+    x[0], w[0] = keep, 0
+    if m > 1 and n > 1:
+        x[1], w[1] = 0, keep
+    return x, w
+
+
 def check_bnn_matmul_packed(dev, cfg, gen) -> dict:
     """The packed GEMM bit for bit against its plain version at the decode
-    (M = 4 slots, stream route) and prefill (M = 128, tiled route) shapes of
-    every projection, and at ragged K through ``binary_matmul``.
+    (M = 4 slots, stream route), prefill (M = 17 and 128) and scoring (M =
+    2048) shapes of every projection (mma route), at ragged M, N, Kw and
+    k_bits with all-ones and all-zero words (mma, and tiled forced), and at
+    ragged K through ``binary_matmul``.
 
     Timed per decode-step layer (the 7 projection launches at M = 4): back to
     back with events (the wrapper's host time included), and as the device
     time of a CUDA graph over GRAPH_LAYERS layers' distinct weights (so they
     stream from memory, as in a real step), in turns with the same graph on
     the tiled route and with ``torch.matmul`` of the pre-signed bf16 operands
-    at the same seven shapes.  Then both routes at M of 1 to 16, the
-    measurement behind ``bnn_matmul.STREAM_MAX_M``."""
+    at the same seven shapes.  Then stream, mma and tiled at M of 1 to 16,
+    the measurement behind ``bnn_matmul.STREAM_MAX_M``.  A prefill layer (M
+    = 128, over GRAPH_LAYERS layers' weights) and a scoring layer (M = 2048)
+    are timed as graph replays in turns: mma, tiled (forced), ``torch.matmul``
+    of pre-signed bf16 (the library call) and ``torch._int_mm`` of +-1 int8,
+    each beside the bound."""
     fn = bnn_matmul.bnn_matmul_packed
     err = 0
     ms = plain = prefill_ms = 0.0
     decode_costs = []
     for k, n, per_layer in lm_projections(cfg):
         wp, _ = kops.pack_weights(torch.randn((n, k), generator=gen, device=dev))
-        for m, path in ((DECODE_M, "stream"), (128, "tiled")):
+        for m, path in ((DECODE_M, "stream"), (17, "mma"), (128, "mma"), (LM_SCORE_LEN, "mma")):
             xp = kops._pack_rows(torch.randn((m, k), generator=gen, device=dev))
-            err = max(err, same(f"bnn_matmul_packed M={m} K={k} N={n} ({path})",
+            tile = f", tile width {bnn_matmul.mma_block_n(m, n, 1, bnn_matmul._sm_count(xp.device))}"
+            err = max(err, same(f"bnn_matmul_packed M={m} K={k} N={n} ({path}{tile if path == 'mma' else ''})",
                                 routed(fn, path, lambda: fn(xp, wp, k_bits=k)),
                                 ref.bnn_matmul_packed_ref(xp, wp, k)))
-            t = time_ms(lambda: fn(xp, wp, k_bits=k))
             if m == DECODE_M:
-                ms += per_layer * t
+                ms += per_layer * time_ms(lambda: fn(xp, wp, k_bits=k))
                 plain += per_layer * time_ms(ref.bnn_matmul_packed_ref, xp, wp, k, iters=3)
                 decode_costs.append(per_layer * costs.bnn_matmul_packed(m, n, wp.shape[1]))
-            else:
-                prefill_ms += per_layer * t
-    print(f"  bnn_matmul_packed per layer, back to back: decode (M={DECODE_M}) {ms} ms, "
-          f"prefill (M=128) {prefill_ms} ms")
+            elif m == 128:
+                prefill_ms += per_layer * time_ms(lambda: fn(xp, wp, k_bits=k))
+    print(f"  bnn_matmul_packed per layer, back to back: decode (M={DECODE_M}, stream) {ms} ms, "
+          f"prefill (M=128, mma) {prefill_ms} ms")
+    # Ragged M, N, Kw (not a multiple of the mma stage's 8 words) and
+    # k_bits, a misaligned view (4-byte copies), and a K of one word.
+    for m, n, kw, k_bits, shift in ((17, 3001, 99, 3163, 0), (2047, 1027, 13, 400, 0), (300, 77, 1, 1, 0),
+                                    (33, 3072, 96, 3072, 1), (129, 4099, 12, 384, 3)):
+        x, w = packed_operands(m, n, kw, k_bits, gen, dev)
+        if shift:
+            w = shifted(w, 4 * shift)
+        want = ref.bnn_matmul_packed_ref(x, w, k_bits)
+        err = max(err, same(f"bnn_matmul_packed M={m} N={n} Kw={kw} k_bits={k_bits}"
+                            + (f", w {4 * shift} bytes past 16" if shift else "") + " (mma)",
+                            routed(fn, "mma", lambda: fn(x, w, k_bits=k_bits)), want))
+        out = torch.empty_like(want)
+        err = max(err, same(f"bnn_matmul_packed M={m} N={n} Kw={kw} k_bits={k_bits} (tiled, forced)",
+                            routed(fn, "tiled", lambda: bnn_matmul._launch(x, w.contiguous(), out, k_bits, "tiled")),
+                            want))
     for k in (100, 513):
         x = torch.randn((37, k), generator=gen, device=dev)
         w = torch.randn((300, k), generator=gen, device=dev)
@@ -1697,10 +1790,10 @@ def check_bnn_matmul_packed(dev, cfg, gen) -> dict:
     signed_w = [[ref.sign(torch.randn((k, n), generator=gen, device=dev), torch.bfloat16)
                  for k, n in shapes] for _ in range(GRAPH_LAYERS)]
 
-    def packed_layers(m, path):
+    def packed_layers(m, path, layers=GRAPH_LAYERS):
         xs = {k: kops._pack_rows(torch.randn((m, k), generator=gen, device=dev)) for k, _ in shapes}
         outs = [[torch.empty((m, n), dtype=torch.int32, device=dev) for _, n in shapes]
-                for _ in range(GRAPH_LAYERS)]
+                for _ in range(layers)]
         for layer, layer_out in zip(packed_w, outs):
             for (k, _), wp, out in zip(shapes, layer, layer_out):
                 if path == "stream" and bnn_matmul.route(xs[k], wp) != "stream":
@@ -1709,27 +1802,52 @@ def check_bnn_matmul_packed(dev, cfg, gen) -> dict:
                         for layer, layer_out in zip(packed_w, outs)
                         for (k, _), wp, out in zip(shapes, layer, layer_out)]
 
-    xs_signed = {k: ref.sign(torch.randn((DECODE_M, k), generator=gen, device=dev), torch.bfloat16)
-                 for k, _ in shapes}
-    library = lambda: [torch.matmul(xs_signed[k], w) for layer in signed_w  # noqa: E731
-                       for (k, _), w in zip(shapes, layer)]
+    def matmul_layers(m, layers=GRAPH_LAYERS):
+        xs = {k: ref.sign(torch.randn((m, k), generator=gen, device=dev), torch.bfloat16) for k, _ in shapes}
+        return lambda: [torch.matmul(xs[k], w) for layer in signed_w[:layers] for (k, _), w in zip(shapes, layer)]
+
+    def int_mm_layers(m, layers=GRAPH_LAYERS):
+        # +-1 int8, the weights (N, K) row-major read as (K, N): the layout
+        # torch._int_mm's int8 kernels take.
+        xs = {k: ref.sign(torch.randn((m, k), generator=gen, device=dev), torch.int8) for k, _ in shapes}
+        ws = [[ref.sign(torch.randn((n, k), generator=gen, device=dev), torch.int8).T for k, n in shapes]
+              for _ in range(layers)]
+        return lambda: [torch._int_mm(xs[k], w) for layer in ws for (k, _), w in zip(shapes, layer)]
+
     t = graphs_in_turns({"stream": packed_layers(DECODE_M, "stream"),
-                         "tiled": packed_layers(DECODE_M, "tiled"), "torch.matmul": library})
+                         "tiled": packed_layers(DECODE_M, "tiled"), "torch.matmul": matmul_layers(DECODE_M)})
     graph_ms = {name: v / GRAPH_LAYERS for name, v in t.items()}
     print(f"  bnn_matmul_packed per decode layer (M={DECODE_M}), graph replay: stream "
           f"{graph_ms['stream']} ms, tiled {graph_ms['tiled']} ms, torch.matmul bf16 "
           f"{graph_ms['torch.matmul']} ms; back to back (events) {ms} ms")
     sweep = {}
     for m in (1, 2, 4, 8, 12, 16):
-        s_ms = graphs_in_turns({f"stream M={m}": packed_layers(m, "stream"),
-                                f"tiled M={m}": packed_layers(m, "tiled")}, iters=10)
-        sweep[m] = {path: v / GRAPH_LAYERS for path, v in zip(("stream", "tiled"), s_ms.values())}
+        s_ms = graphs_in_turns({f"{path} M={m}": packed_layers(m, path) for path in ("stream", "mma", "tiled")},
+                               iters=10)
+        sweep[m] = {path: v / GRAPH_LAYERS for path, v in zip(("stream", "mma", "tiled"), s_ms.values())}
     print(f"  route sweep, ms per layer by M (graph replay): {json.dumps(sweep)}")
     b_ms, b_by = costs.total(decode_costs).bound_ms()
-    return dict(source="src/repro_torch/csrc/bnn_matmul.cu",
-                replaces="src/repro/kernels/bnn_matmul.py:56",
-                max_abs_err=err, ms=graph_ms["stream"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=graph_ms["torch.matmul"])
+    rec = dict(source="src/repro_torch/csrc/bnn_matmul.cu",
+               replaces="src/repro/kernels/bnn_matmul.py:56",
+               max_abs_err=err, ms=graph_ms["stream"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+               library_ms=graph_ms["torch.matmul"], decode_ms_tiled_forced=graph_ms["tiled"],
+               route_sweep_ms=sweep)
+    # A prefill layer (M = 128, 4 layers' weights a graph: beyond the L2) and
+    # a scoring layer (M = 2048, one layer's weights), in turns.
+    for label, m, layers in (("prefill", 128, GRAPH_LAYERS), ("scoring", LM_SCORE_LEN, 1)):
+        calls = {"mma": packed_layers(m, "mma", layers), "tiled (forced)": packed_layers(m, "tiled", layers),
+                 "torch.matmul bf16": matmul_layers(m, layers), "torch._int_mm int8": int_mm_layers(m, layers)}
+        t = {name: v / layers for name, v in graphs_in_turns(calls, iters=10).items()}
+        lb_ms, lb_by = costs.total(per * costs.bnn_matmul_packed(m, n, k // 32)
+                                   for k, n, per in lm_projections(cfg)).bound_ms()
+        print(f"  bnn_matmul_packed per {label} layer (M={m}, 7 launches), graph replay: "
+              + ", ".join(f"{name} {v} ms" for name, v in t.items()) + f"; bound {lb_ms} ms ({lb_by})")
+        rec.update({f"{label}_layer_ms_mma": t["mma"], f"{label}_layer_ms_tiled_forced": t["tiled (forced)"],
+                    f"{label}_layer_library_ms_torch_matmul": t["torch.matmul bf16"],
+                    f"{label}_layer_ms_torch_int_mm": t["torch._int_mm int8"],
+                    f"{label}_layer_bound_ms": lb_ms, f"{label}_layer_bound_by": lb_by})
+    del signed_w, packed_w
+    return rec
 
 
 def check_bnn_matmul_mxu(dev, cfg, gen) -> dict:
@@ -1894,11 +2012,11 @@ def expected_routes(per_layer: int, cfg, decode_steps: int, sizes: list[int]) ->
     """A kernel's launches by route over a serving run: ``per_layer``
     launches an attention block in each decode step (M or C of at most
     STREAM_MAX_M: ``stream``) and each prefill of ``sizes`` rows (``stream``
-    up to STREAM_MAX_M, else ``tiled``); every K here is a multiple of 128
-    bits."""
+    up to STREAM_MAX_M, else ``mma``; ``tiled`` is never taken); every K
+    here is a multiple of 128 bits."""
     short = sum(m <= bnn_matmul.STREAM_MAX_M for m in sizes)
     per_call = per_layer * attention_blocks(cfg)
-    return {"stream": per_call * (decode_steps + short), "tiled": per_call * (len(sizes) - short)}
+    return {"stream": per_call * (decode_steps + short), "mma": per_call * (len(sizes) - short), "tiled": 0}
 
 
 def check_serving_launches(label: str, cfg, launches: dict, calls: int, decode_steps: int,
@@ -1991,7 +2109,7 @@ def score(dev, cfg, params, gen, length: int = LM_SCORE_LEN, label: str = LM_ARC
     sequence (``lm_inputs``): finite logits of the right shape; exactly
     ``call_launches`` plus one ``flash_attention`` an attention block, every
     flash launch on the tma route, causal unless the model is encoder-only,
-    and every packed contraction on the tiled route."""
+    and every packed contraction on the mma route."""
     flash_cfg = dataclasses.replace(cfg, attn_impl="pallas_flash")
     batch = lm_inputs(cfg, length, gen, dev)
     torch.cuda.synchronize()
@@ -2014,7 +2132,7 @@ def score(dev, cfg, params, gen, length: int = LM_SCORE_LEN, label: str = LM_ARC
     proj, experts = packed_launches(cfg)
     for name, n in (("bnn_matmul_packed", proj), ("bnn_matmul_packed_experts", experts)):
         got = dict(COUNTED[name].launches_by_route)
-        want_routes = {"stream": 0, "tiled": n * blocks}
+        want_routes = {"stream": 0, "mma": n * blocks, "tiled": 0}
         if got != want_routes:
             raise AssertionError(f"{label} scoring: {name} launches by route {got}, expected {want_routes}")
     if logits.shape != (1, length, cfg.vocab_size) or not finite:
@@ -2069,32 +2187,42 @@ def check_bnn_matmul_packed_experts(dev, gen) -> dict:
     """The batched packed expert GEMM bit for bit against its plain version:
     qwen3-moe-30b-a3b's and deepseek-v2-236b's gate and down shapes at C of
     1 (a decode step of 4 slots), 10 (a 128-token prompt) and 160 (qwen3's
-    2048-token scoring pass), a ragged K (not a multiple of 32) on each
-    route, and odd E; each case asserts its route.  Timed per qwen3 decode
-    layer (gate, up and down at C = 1) as the device time of a CUDA graph
-    over EXPERT_GRAPH_LAYERS layers' distinct weights, in turns with the
-    tiled route and with ``torch.bmm`` of pre-signed bf16 operands; the
-    plain version beside it; one scoring layer (C = 160, tiled) too."""
+    2048-token scoring pass: the second 128-row tile a quarter full), a
+    ragged K (not a multiple of 32) on each route, and odd E; each case
+    asserts its route, the mma ones also held on tiled, forced.  Timed per
+    qwen3 decode layer (gate, up and down at C = 1) as the device time of a
+    CUDA graph over EXPERT_GRAPH_LAYERS layers' distinct weights, in turns
+    with the tiled route and with ``torch.bmm`` of pre-signed bf16 operands;
+    the plain version beside it.  One scoring layer (C = 160) as graph
+    replays in turns: mma, tiled (forced), ``torch.bmm`` of pre-signed bf16
+    and ``torch._int_mm`` of +-1 int8 (a loop over the experts), beside the
+    bound."""
     fn = bnn_matmul.bnn_matmul_packed_experts
     err = 0
+
+    def held(label, x, w, k, path):
+        nonlocal err
+        want = ref.bnn_matmul_packed_experts_ref(x, w, k)
+        err = max(err, same(f"{label} ({path})", routed(fn, path, lambda: fn(x, w, k_bits=k)), want))
+        if path == "mma":
+            out = torch.empty_like(want)
+            err = max(err, same(f"{label} (tiled, forced)", routed(fn, "tiled", lambda: bnn_matmul._launch_experts(
+                x, w, out, k, "tiled")), want))
+
     for arch in (MOE_ARCH, MLA_ARCH):
         for e, o, kw, k in expert_shapes(get_config(arch))[1:]:  # gate (= up) and down
             w = random_words((e, o, kw), gen, dev)
             for c in EXPERT_C:
                 x = random_words((e, c, kw), gen, dev)
-                path = "stream" if c <= bnn_matmul.STREAM_MAX_M else "tiled"
-                err = max(err, same(f"bnn_matmul_packed_experts {arch} E={e} C={c} O={o} Kw={kw} ({path})",
-                                    routed(fn, path, lambda: fn(x, w, k_bits=k)),
-                                    ref.bnn_matmul_packed_experts_ref(x, w, k)))
+                path = "stream" if c <= bnn_matmul.STREAM_MAX_M else "mma"
+                held(f"bnn_matmul_packed_experts {arch} E={e} C={c} O={o} Kw={kw}", x, w, k, path)
             del w
     # Packed from floats, so the bits past K are zero in both operands.
-    for e, c, o, k, path in ((7, 10, 300, 1000, "stream"), (7, 10, 300, 3163, "tiled"),
-                             (5, 1, 129, 70, "tiled"), (1, 160, 64, 2048, "tiled")):
+    for e, c, o, k, path in ((7, 10, 300, 1000, "stream"), (7, 10, 300, 3163, "mma"),
+                             (5, 1, 129, 70, "mma"), (1, 160, 64, 2048, "mma"), (3, 160, 70, 513, "mma")):
         x = kops._pack_rows(torch.randn((e * c, k), generator=gen, device=dev)).view(e, c, -1)
         w = kops._pack_rows(torch.randn((e * o, k), generator=gen, device=dev)).view(e, o, -1)
-        err = max(err, same(f"bnn_matmul_packed_experts E={e} C={c} O={o} K={k} ({path})",
-                            routed(fn, path, lambda: fn(x, w, k_bits=k)),
-                            ref.bnn_matmul_packed_experts_ref(x, w, k)))
+        held(f"bnn_matmul_packed_experts E={e} C={c} O={o} K={k}", x, w, k, path)
 
     cfg = get_config(MOE_ARCH)
     shapes = expert_shapes(cfg)
@@ -2105,7 +2233,7 @@ def check_bnn_matmul_packed_experts(dev, gen) -> dict:
         if bnn_matmul.experts_route(x, w) != "stream":
             raise AssertionError(f"decode expert shape {tuple(x.shape)} cannot take the stream route")
 
-    def expert_layers(path):
+    def expert_layers(path, xs=xs, outs=outs, layers=layers):
         return lambda: [bnn_matmul._launch_experts(x, w, out, k, path) for layer in layers
                         for x, w, out, (_, _, _, k) in zip(xs, layer, outs, shapes)]
 
@@ -2117,25 +2245,40 @@ def check_bnn_matmul_packed_experts(dev, gen) -> dict:
     t = graphs_in_turns({"stream": expert_layers("stream"), "tiled": expert_layers("tiled"),
                          "torch.bmm": library})
     per_layer = {name: v / EXPERT_GRAPH_LAYERS for name, v in t.items()}
-    del signed_w, signed_x
+    del signed_x
     plain = time_ms(lambda: [ref.bnn_matmul_packed_experts_ref(x, w, k)
                              for x, w, (_, _, _, k) in zip(xs, layers[0], shapes)], iters=3)
     b_ms, b_by = costs.total(costs.bnn_matmul_packed_experts(e, 1, o, kw) for e, o, kw, _ in shapes).bound_ms()
-    c_score = capacity_of(LM_SCORE_LEN, cfg)
-    xs_score = [random_words((e, c_score, kw), gen, dev) for e, _, kw, _ in shapes]
-    score_ms = time_ms(lambda: [fn(x, w, k_bits=k) for x, w, (_, _, _, k) in zip(xs_score, layers[0], shapes)])
-    s_ms, s_by = costs.total(costs.bnn_matmul_packed_experts(e, c_score, o, kw)
-                             for e, o, kw, _ in shapes).bound_ms()
     print(f"  bnn_matmul_packed_experts per {MOE_ARCH} decode layer (3 launches at C=1), graph replay: "
           f"stream {per_layer['stream']} ms, tiled {per_layer['tiled']} ms, torch.bmm bf16 "
           f"{per_layer['torch.bmm']} ms; bound {b_ms} ms ({b_by}); plain {plain} ms")
-    print(f"  bnn_matmul_packed_experts per scoring layer (C={c_score}, tiled, events): {score_ms} ms; "
-          f"bound {s_ms} ms ({s_by})")
+
+    # One scoring layer: C = 160 slots of every expert, one layer's weights.
+    c_score = capacity_of(LM_SCORE_LEN, cfg)
+    xs_score = [random_words((e, c_score, kw), gen, dev) for e, _, kw, _ in shapes]
+    outs_score = [torch.empty((e, c_score, o), dtype=torch.int32, device=dev) for e, o, _, _ in shapes]
+    sx = [ref.sign(torch.randn((e, c_score, k), generator=gen, device=dev), torch.bfloat16) for e, _, _, k in shapes]
+    ix = [v.to(torch.int8) for v in sx]
+    iw = [[wi.T.contiguous().T for wi in w.to(torch.int8)] for w in signed_w[0]]
+    calls = {"mma": expert_layers("mma", xs_score, outs_score, layers[:1]),
+             "tiled (forced)": expert_layers("tiled", xs_score, outs_score, layers[:1]),
+             "torch.bmm bf16": lambda: [torch.bmm(x, w) for x, w in zip(sx, signed_w[0])],
+             "torch._int_mm int8": lambda: [torch._int_mm(x[i], ws[i]) for x, ws in zip(ix, iw)
+                                            for i in range(x.shape[0])]}
+    score = graphs_in_turns(calls, iters=10)
+    del signed_w, sx, ix, iw
+    s_ms, s_by = costs.total(costs.bnn_matmul_packed_experts(e, c_score, o, kw)
+                             for e, o, kw, _ in shapes).bound_ms()
+    print(f"  bnn_matmul_packed_experts per scoring layer (C={c_score}, 3 launches), graph replay: "
+          + ", ".join(f"{name} {v} ms" for name, v in score.items()) + f"; bound {s_ms} ms ({s_by})")
     return dict(source="src/repro_torch/csrc/bnn_matmul.cu",
                 replaces="src/repro/layers/moe.py:104",
                 max_abs_err=err, ms=per_layer["stream"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=per_layer["torch.bmm"], tiled_ms=per_layer["tiled"], scoring_ms=score_ms,
-                scoring_bound_ms=s_ms)
+                library_ms=per_layer["torch.bmm"], decode_ms_tiled_forced=per_layer["tiled"],
+                scoring_layer_ms_mma=score["mma"], scoring_layer_ms_tiled_forced=score["tiled (forced)"],
+                scoring_layer_library_ms_torch_bmm=score["torch.bmm bf16"],
+                scoring_layer_ms_torch_int_mm=score["torch._int_mm int8"],
+                scoring_layer_bound_ms=s_ms, scoring_layer_bound_by=s_by)
 
 
 def init_model(cfg, label: str) -> dict:
@@ -2249,7 +2392,7 @@ def check_against_cpu(dev, cfg, label: str) -> float:
     return close(f"{label}: {layers}-layer float32 forward, card (flash) vs CPU (plain)", got.cpu(), want, 2e-3)
 
 
-PACKED_MS = ((DECODE_M, "stream"), (384, "tiled"), (LM_SCORE_LEN, "tiled"))  # decode, prompt, scoring
+PACKED_MS = ((DECODE_M, "stream"), (384, "mma"), (LM_SCORE_LEN, "mma"))  # decode, prompt, scoring
 
 
 def check_packed_shapes(dev, cfg, gen, label: str) -> int:
@@ -2534,7 +2677,7 @@ DRYRUN_CELLS = (
 )
 # The route every packed GEMM of a packed cell takes: a decode step's M is
 # its batch (<= 16), a prefill's M its batch x 32768 tokens.
-DRYRUN_GEMM_ROUTE = {"decode": "stream", "prefill": "tiled"}
+DRYRUN_GEMM_ROUTE = {"decode": "stream", "prefill": "mma"}
 HELD_ROWS = 8192   # rows a chunk of the prefill-size plain versions
 
 
@@ -2544,15 +2687,18 @@ def signs(words: torch.Tensor, k: int) -> torch.Tensor:
     return bits.to(torch.float32).mul_(2).sub_(1)
 
 
-def check_prefill_shapes(dev, cfg, gen, m: int) -> int:
-    """``bitpack`` (bf16, vec) and ``bnn_matmul_packed`` (tiled) at a
+def check_prefill_shapes(dev, cfg, gen, m: int) -> tuple[int, dict]:
+    """``bitpack`` (bf16, vec) and ``bnn_matmul_packed`` (mma) at a
     prefill's M = ``m`` rows of each of the model's distinct (K, N), every
     row held bit for bit against the plain versions, in chunks of HELD_ROWS
     rows: the bit-pack against ``pack_ge_plain``, the GEMM against a float32
     product of the unpacked +-1 operands (exact: every partial sum is an
-    integer below 2^24)."""
+    integer below 2^24).  Each GEMM is timed there with events in turns
+    with tiled (forced), ``torch.matmul`` of pre-signed bf16 and
+    ``torch._int_mm`` of +-1 int8, beside its bound.  Returns the max error
+    and ``{(K, N): {name: ms, ..., "bound": ms}}``."""
     fn, bp = bnn_matmul.bnn_matmul_packed, bitpack.bitpack
-    err = 0
+    err, times = 0, {}
     for k, n in sorted({(k, n) for k, n, _ in lm_projections(cfg)}):
         wp, _ = kops.pack_weights(torch.randn((n, k), generator=gen, device=dev))
         x = torch.randn((m, k), generator=gen, device=dev)
@@ -2560,7 +2706,7 @@ def check_prefill_shapes(dev, cfg, gen, m: int) -> int:
         x[-1, ::3] = -1e-39
         x = x.to(torch.bfloat16)
         xp = routed(bp, "vec", lambda: bp(x))
-        out = routed(fn, "tiled", lambda: fn(xp, wp, k_bits=k))
+        out = routed(fn, "mma", lambda: fn(xp, wp, k_bits=k))
         w = signs(wp, k)
         for r0 in range(0, m, HELD_ROWS):
             rows = slice(r0, r0 + HELD_ROWS)
@@ -2571,18 +2717,31 @@ def check_prefill_shapes(dev, cfg, gen, m: int) -> int:
             want = (signs(xp[rows], k) @ w.T).to(torch.int32)
             diff = int((out[rows] - want).abs().max().item())
             if diff:
-                raise AssertionError(f"{LM_ARCH}: bnn_matmul_packed M={m} K={k} N={n} (tiled) disagrees with "
+                raise AssertionError(f"{LM_ARCH}: bnn_matmul_packed M={m} K={k} N={n} (mma) disagrees with "
                                      f"plain at rows {rows.start}:{rows.stop} (max diff {diff})")
             err = max(err, diff)
-        print(f"  {LM_ARCH}: bitpack bf16 ({m}, {k}) (vec) and bnn_matmul_packed M={m} K={k} N={n} (tiled): "
-              f"every row bit-exact")
-        del x, xp, out, w
-    return err
+        del x, w
+        xs, ws = ref.sign(torch.randn((m, k), generator=gen, device=dev), torch.bfloat16), ref.sign(
+            torch.randn((k, n), generator=gen, device=dev), torch.bfloat16)
+        xi, wi = xs.to(torch.int8), ws.T.contiguous().T.to(torch.int8)  # (K, N) column-major for _int_mm
+        t = in_turns({"mma": lambda: bnn_matmul._launch(xp, wp, out, k, "mma"),
+                      "tiled (forced)": lambda: bnn_matmul._launch(xp, wp, out, k, "tiled"),
+                      "torch.matmul bf16": lambda: torch.matmul(xs, ws),
+                      "torch._int_mm int8": lambda: torch._int_mm(xi, wi)}, f"M={m} K={k} N={n}", iters=3)
+        b_ms, b_by = costs.bnn_matmul_packed(m, n, wp.shape[1]).bound_ms()
+        times[(k, n)] = dict(t, bound=b_ms)
+        print(f"  {LM_ARCH}: bitpack bf16 ({m}, {k}) (vec) and bnn_matmul_packed M={m} K={k} N={n} (mma, tile "
+              f"width {bnn_matmul.mma_block_n(m, n, 1, bnn_matmul._sm_count(xp.device))}): every row bit-exact; "
+              + ", ".join(f"{name} {v} ms" for name, v in t.items()) + f" (events, in turns); bound {b_ms} ms ({b_by})")
+        del xp, out, xs, ws, xi, wi
+        torch.cuda.empty_cache()
+    return err, times
 
 
-def drive_dryrun(dev, gen) -> dict:
+def drive_dryrun(dev, gen) -> tuple[dict, dict]:
     """The dry-run phase (module docstring, step 13).  Returns each cell's
-    launches by path."""
+    launches by path, and the prefill GEMM's times at the cell's M
+    (``check_prefill_shapes``)."""
     by_path, prefill_m = {}, []
     with tempfile.TemporaryDirectory() as out:
         for arch, shape_name, overrides, tag, steps in DRYRUN_CELLS:
@@ -2616,12 +2775,13 @@ def drive_dryrun(dev, gen) -> dict:
             elif launches:
                 raise AssertionError(f"{label}: launched kernels at quant none: {launches}")
             print(f"  {label}: {time.perf_counter() - t_cell} s, launches {launches}, GEMM routes {routes}")
+    times = {}
     for m in prefill_m:
         t0 = time.perf_counter()
-        err = check_prefill_shapes(dev, get_config(LM_ARCH, quant=DRYRUN_QUANT), gen, m)
+        err, times[m] = check_prefill_shapes(dev, get_config(LM_ARCH, quant=DRYRUN_QUANT), gen, m)
         print(f"  the packed kernels at the prefill cell's M = {m} held against plain (max |err| {err}): "
               f"{time.perf_counter() - t0} s")
-    return by_path
+    return by_path, times
 
 
 # The keys every entry of the kernels line has, in this order; a record's
@@ -2713,9 +2873,11 @@ def main() -> int:
     lm_params = models.init_params(cfg, SEED, device=dev)
     torch.cuda.synchronize()
     print(f"init_params: {time.perf_counter() - t0} s")
-    lm_paths = {"phi3 serving": drive_serving(dev, cfg, lm_params),
-                "phi3 scoring": drive_scoring(dev, cfg, lm_params, gen)}
+    lm_paths = {"phi3 serving": drive_serving(dev, cfg, lm_params)}
+    serving_routes = dict(bnn_matmul.bnn_matmul_packed.launches_by_route)
+    lm_paths["phi3 scoring"] = drive_scoring(dev, cfg, lm_params, gen)
     records["bnn_matmul_packed"]["launches"] = lm_paths["phi3 serving"]["bnn_matmul_packed"]
+    records["bnn_matmul_packed"]["launches_by_route"] = serving_routes
     records["flash_attention"]["launches"] = lm_paths["phi3 scoring"]["flash_attention"]
     free(lm_params)
     print(f"LM phases: {time.perf_counter() - t_lm} s")
@@ -2743,7 +2905,14 @@ def main() -> int:
 
     t_dry = time.perf_counter()
     print("dry-run phase:")
-    lm_paths.update(drive_dryrun(dev, gen))
+    by_path, prefill_times = drive_dryrun(dev, gen)
+    lm_paths.update(by_path)
+    names = {"mma": "ms_mma", "tiled (forced)": "ms_tiled_forced", "torch.matmul bf16": "library_ms_torch_matmul",
+             "torch._int_mm int8": "ms_torch_int_mm", "bound": "bound_ms"}
+    for m, by_shape in prefill_times.items():
+        for (k, n), t in by_shape.items():
+            for name, key in names.items():
+                records["bnn_matmul_packed"][f"dryrun_prefill_M{m}_K{k}_N{n}_{key}"] = t[name]
     print(f"dry-run phase: {time.perf_counter() - t_dry} s")
     # Every LM path's launches of each LM kernel; the bit-pack kernel's LM
     # launches (its ``bitpack`` wrapper) beside its packet-path record.

@@ -15,21 +15,28 @@ chosen by :func:`route`:
 * ``"stream"``: M <= ``STREAM_MAX_M`` (decode), Kw a multiple of 4 and
   16-byte aligned operands: each weight row read once in 16-byte loads by a
   team of lanes, x staged in shared memory;
-* ``"tiled"``: every other shape (prefill, scoring, ragged Kw, sliced views).
+* ``"mma"``: every other shape (prefill, scoring, ragged Kw, sliced views):
+  the words unpacked to +1/-1 int8 inside the kernel and summed by the
+  int8 tensor cores (``wgmma`` s8 into s32), in MMA_BLOCK_M x
+  :func:`mma_block_n` output tiles and K stages of MMA_STAGE_WORDS words.
 
-Each launch is counted in ``bnn_matmul_packed.launches`` and, by route, in
+``"tiled"``, the first design (popcounts in shared-memory tiles), is reached
+only through ``_launch(..., "tiled")``, to time it in turns.  A launch that
+fails raises; nothing falls back to another route.  Each launch is counted
+in ``bnn_matmul_packed.launches`` and, by route, in
 ``bnn_matmul_packed.launches_by_route``.
 
 :func:`bnn_matmul_packed_experts` is the same GEMM with an expert axis, the
 batched packed expert contraction of ``layers/moe.py`` (the reference's jnp
 ``_packed_expert_mm``, ``src/repro/layers/moe.py:104-124``; no Pallas kernel):
-the same two kernels with the expert on grid.z, one C entry point per route,
+the same kernels with the expert on grid.z, one C entry point per route,
 the route picked by :func:`route` on one expert's (C, Kw).  It counts its own
 launches the same way.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,12 +46,15 @@ from repro_torch.roofline import kernels as costs, ops as op_counts
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-ROUTES = ("stream", "tiled")
+ROUTES = ("stream", "mma", "tiled")
 _ENTRY = {path: f"bnn_matmul_packed_{path}" for path in ROUTES}
 _EXPERT_ENTRY = {path: f"bnn_matmul_packed_experts_{path}" for path in ROUTES}
+# The mma entry points take the tile width before the stream.
 _SIGNATURES = {
-    **{name: ([_P, _P, _P, _I, _I, _I, _I, _P], _I) for name in _ENTRY.values()},
-    **{name: ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I) for name in _EXPERT_ENTRY.values()},
+    **{name: ([_P, _P, _P, _I, _I, _I, _I, *([_I] if path == "mma" else []), _P], _I)
+       for path, name in _ENTRY.items()},
+    **{name: ([_P, _P, _P, _I, _I, _I, _I, _I, *([_I] if path == "mma" else []), _P], _I)
+       for path, name in _EXPERT_ENTRY.items()},
 }
 
 # The stream route's limits (csrc/bnn_matmul.cu): at most STREAM_MAX_M rows of
@@ -53,21 +63,59 @@ STREAM_MAX_M = 16
 _STREAM_X_BYTES = 48 * 1024
 _ALIGN = 16
 
-# Row blocks of the tiled kernel's grid (grid.y): at most 65535 tiles of 64 rows.
-_MAX_ROWS = 65535 * 64
+# The mma kernel's tiles (csrc/bnn_matmul.cu kMmaBM, kMmaStageWords): output
+# rows a block, words of K a stage.  Its tile widths (the instantiated
+# WgmmaS8 widths), widest first.
+MMA_BLOCK_M = 128
+MMA_STAGE_WORDS = 8
+MMA_BLOCK_NS = (128, 64, 32)
+
+# Row tiles sit on the mma kernel's grid.x (2^31 - 1 blocks), so M is
+# bounded by the int the kernel indexes rows with (less a tile, so that the
+# tile count cannot overflow).  The forced tiled route keeps its own limit:
+# 65535 row blocks of 64 (grid.y).
+_MAX_ROWS = 2**31 - 1 - MMA_BLOCK_M
 # Experts on grid.z.
 _MAX_EXPERTS = 65535
 
 
 def route(x_packed: torch.Tensor, w_packed: torch.Tensor) -> str:
     """The kernel a CUDA launch on these (contiguous) operands takes:
-    ``"stream"`` or ``"tiled"``.  Pure: it reads shape and ``data_ptr``
+    ``"stream"`` or ``"mma"``.  Pure: it reads shape and ``data_ptr``
     only, so it can be asked on any device."""
     m, kw = x_packed.shape
     if (1 <= m <= STREAM_MAX_M and kw % 4 == 0 and m * kw * 4 <= _STREAM_X_BYTES
             and x_packed.data_ptr() % _ALIGN == 0 and w_packed.data_ptr() % _ALIGN == 0):
         return "stream"
-    return "tiled"
+    return "mma"
+
+
+def mma_block_n(m: int, n: int, experts: int, sms: int) -> int:
+    """The mma kernel's output tile width for an (m, n) product per expert
+    on a card of ``sms`` SMs: of MMA_BLOCK_NS, the one whose waves of one
+    block an SM cost least, a wave of BN-wide tiles costing BN + 64 (a
+    stage's products grow with BN; its barrier, A registers and packed
+    copies do not); the widest on a tie.  Wide tiles unpack each weight
+    word for fewer rows of x; narrow ones fill the card when M is a
+    prefill's 16 to 128 rows (at N = 3072, 24 tiles of 128 would leave 108
+    of 132 SMs idle).  Measured on an H100 (PERF.md section 6): 128 at M =
+    2048 and at C = 160 experts, 32 or 64 at M = 128."""
+    row_tiles = -(-m // MMA_BLOCK_M)
+
+    def cost(bn: int) -> int:
+        return -(-row_tiles * -(-n // bn) * experts // sms) * (bn + 64)
+
+    return min(MMA_BLOCK_NS, key=cost)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tile_args(path: str, device, m: int, n: int, experts: int) -> tuple:
+    """The mma entry points' tile width argument (none for other routes)."""
+    return (mma_block_n(m, n, experts, _sm_count(device)),) if path == "mma" else ()
 
 
 def _check_operands(x_packed: torch.Tensor, w_packed: torch.Tensor, k_bits: int) -> None:
@@ -120,7 +168,7 @@ def _launch(x_packed, w_packed, out, k_bits: int, path: str) -> torch.Tensor:
     with torch.cuda.device(x_packed.device):
         code = getattr(lib, _ENTRY[path])(
             x_packed.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, out.shape[1], kw, k_bits,
-            _build.stream_of(x_packed),
+            *_tile_args(path, x_packed.device, m, out.shape[1], 1), _build.stream_of(x_packed),
         )
     _build.check(lib, code, "bnn_matmul_packed")
     bnn_matmul_packed.launches += 1
@@ -174,7 +222,7 @@ def _launch_experts(x_packed, w_packed, out, k_bits: int, path: str) -> torch.Te
     with torch.cuda.device(x_packed.device):
         code = getattr(lib, _EXPERT_ENTRY[path])(
             x_packed.data_ptr(), w_packed.data_ptr(), out.data_ptr(), e, c, out.shape[2], kw,
-            k_bits, _build.stream_of(x_packed),
+            k_bits, *_tile_args(path, x_packed.device, c, out.shape[2], e), _build.stream_of(x_packed),
         )
     _build.check(lib, code, "bnn_matmul_packed_experts")
     bnn_matmul_packed_experts.launches += 1

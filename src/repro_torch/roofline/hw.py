@@ -6,6 +6,7 @@
 * Population counts: 16 results per SM per clock on compute capability 9.0
   (CUDA C++ Programming Guide, arithmetic instruction throughput table).
 * Dense bf16 on the tensor cores: 989 TFLOP/s (H100 SXM data sheet).
+* Dense int8 on the tensor cores: 1,979 TOP/s (H100 SXM data sheet).
 * float32 outside the tensor cores (FFMA, no TF32): 66.9 TFLOP/s (H100
   SXM data sheet, "FP32").
 
@@ -17,4 +18,5 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 POPC_PER_S = 16 * 132 * 1.98e9
 BF16_TENSOR_FLOPS = 989e12
+INT8_TENSOR_OPS = 1979e12
 FP32_FLOPS = 66.9e12

@@ -93,16 +93,18 @@ def packed_layer_routed(batch: int, n_words: int, tenants: int, n_out: int) -> C
 
 def bnn_matmul_packed(m: int, n: int, kw: int) -> Cost:
     """The ±1 GEMM on packed words: (m, kw) and (n, kw) words read, (m, n)
-    int32 written; one population count per word pair, its limit."""
-    return Cost((m * kw + n * kw + m * n) * 4, m * n * kw, hw.POPC_PER_S)
+    int32 written; 2 m n kw 32 operations at the int8 tensor cores' rate,
+    the fastest exact way the card has to do them (each bit a +1/-1 int8,
+    products summed in int32), whatever route a launch takes."""
+    return Cost((m * kw + n * kw + m * n) * 4, 2 * m * n * kw * 32, hw.INT8_TENSOR_OPS)
 
 
 def bnn_matmul_packed_experts(e: int, c: int, o: int, kw: int) -> Cost:
     """The ±1 GEMM of every expert on packed words: (e, c, kw) and
-    (e, o, kw) words read, (e, c, o) int32 written; one population count per
-    word pair.  Every capacity slot counts, empty ones too: the kernel
-    computes them, as the reference does."""
-    return Cost((e * c * kw + e * o * kw + e * c * o) * 4, e * c * o * kw, hw.POPC_PER_S)
+    (e, o, kw) words read, (e, c, o) int32 written; 2 e c o kw 32 int8
+    tensor-core operations.  Every capacity slot counts, empty ones too:
+    the kernel computes them, as the reference does."""
+    return Cost((e * c * kw + e * o * kw + e * c * o) * 4, 2 * e * c * o * kw * 32, hw.INT8_TENSOR_OPS)
 
 
 def bnn_matmul_mxu(m: int, k: int, n: int) -> Cost:

@@ -525,14 +525,14 @@ def _packed_operands(rng, m, n, kw, k_bits):
 
 
 # M from 1 to the decode route's threshold takes the stream kernel when Kw
-# is a multiple of 4; one row more, or a ragged Kw, takes the tiled one.
+# is a multiple of 4; one row more, or a ragged Kw, takes the mma one.
 @pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 12, bnn_matmul.STREAM_MAX_M, bnn_matmul.STREAM_MAX_M + 1])
 @pytest.mark.parametrize("kw,k_bits,n", [(96, 3072, 3072), (256, 8192, 3000), (99, 3163, 301),
                                           (96, 3000, 1027), (8, 1, 77)])
 def test_bnn_matmul_packed_decode_route(cuda, m, kw, k_bits, n):
     rng = np.random.default_rng(m * 1000 + kw)
     x, w = _packed_operands(rng, m, n, kw, k_bits)
-    path = "stream" if m <= bnn_matmul.STREAM_MAX_M and kw % 4 == 0 else "tiled"
+    path = "stream" if m <= bnn_matmul.STREAM_MAX_M and kw % 4 == 0 else "mma"
     fn = bnn_matmul.bnn_matmul_packed
     out = _launched(fn, path, lambda: fn(x.to(cuda), w.to(cuda), k_bits=k_bits))
     assert torch.equal(out.cpu(), ref.bnn_matmul_packed_ref(x, w, k_bits))
@@ -554,12 +554,47 @@ def test_bnn_matmul_packed_misaligned_views_take_tiled(cuda, which, words):
     xc = shifted(x) if which in ("x", "both") else x.to(cuda)
     wc = shifted(w) if which in ("w", "both") else w.to(cuda)
     fn = bnn_matmul.bnn_matmul_packed
-    out = _launched(fn, "tiled", lambda: fn(xc, wc, k_bits=3072))
+    out = _launched(fn, "mma", lambda: fn(xc, wc, k_bits=3072))
     assert torch.equal(out.cpu(), ref.bnn_matmul_packed_ref(x, w, 3072))
     # A row slice of aligned weights stays aligned (Kw = 96 words) and streams.
     ws = w.to(cuda)[3:]
     out = _launched(fn, "stream", lambda: fn(x.to(cuda), ws, k_bits=3072))
     assert torch.equal(out.cpu(), ref.bnn_matmul_packed_ref(x, w[3:], 3072))
+
+
+# The mma route at the shapes that stress it: Kw not a multiple of its
+# 8-word stage (its zero-filled tail), M of 17 and 2047 (a second warpgroup
+# and a last row tile mostly past M), ragged N (tiles of 32, 64 and 128
+# columns past N, stores one int at a time where N is not a multiple of 4),
+# a K of one word, and all-ones and all-zero words; each launch also on the
+# first design, tiled, forced.
+@pytest.mark.parametrize("m,n,kw,k_bits", [
+    (17, 3072, 96, 3072), (2047, 3072, 96, 3072), (17, 3001, 99, 3163), (2047, 1027, 13, 400),
+    (128, 8192, 96, 3072), (128, 3002, 256, 8192), (33, 129, 5, 150), (300, 77, 1, 1),
+    (1000, 50, 9, 270), (129, 4099, 12, 384),
+])
+def test_bnn_matmul_packed_mma_route(cuda, m, n, kw, k_bits):
+    rng = np.random.default_rng(m * 7 + n + kw)
+    x, w = _packed_operands(rng, m, n, kw, k_bits)
+    assert m > bnn_matmul.STREAM_MAX_M
+    fn = bnn_matmul.bnn_matmul_packed
+    want = ref.bnn_matmul_packed_ref(x, w, k_bits)
+    out = _launched(fn, "mma", lambda: fn(x.to(cuda), w.to(cuda), k_bits=k_bits))
+    assert torch.equal(out.cpu(), want)
+    tiled = _launched(fn, "tiled", lambda: bnn_matmul._launch(
+        x.to(cuda), w.to(cuda), torch.empty_like(out), k_bits, "tiled"))
+    assert torch.equal(tiled.cpu(), want)
+
+
+@pytest.mark.parametrize("block_n", bnn_matmul.MMA_BLOCK_NS)
+def test_bnn_matmul_packed_mma_every_tile_width(cuda, block_n, monkeypatch):
+    """Each tile width the wrapper can pick, forced, on one ragged shape."""
+    rng = np.random.default_rng(block_n)
+    x, w = _packed_operands(rng, 200, 301, 19, 600)
+    monkeypatch.setattr(bnn_matmul, "mma_block_n", lambda *args: block_n)
+    fn = bnn_matmul.bnn_matmul_packed
+    out = _launched(fn, "mma", lambda: fn(x.to(cuda), w.to(cuda), k_bits=600))
+    assert torch.equal(out.cpu(), ref.bnn_matmul_packed_ref(x, w, 600))
 
 
 def _launched(fn, path, call):
@@ -1227,26 +1262,29 @@ def _expert_operands(rng, e, c, o, kw, k_bits):
 
 
 # C of 1 to 16 with Kw a multiple of 4 streams; C of 17 and up, or a ragged
-# Kw (K not a multiple of 128 bits), takes the tiled kernel.  Odd E and
+# Kw (K not a multiple of 128 bits), takes the mma kernel.  Odd E and
 # ragged O, C and K; qwen3-moe-30b-a3b's gate (E=128, O=768, Kw=64) and down
 # (O=2048, Kw=24) shapes at decode, prefill and scoring capacities.
 @pytest.mark.parametrize("e,c,o,k", [
     (1, 1, 64, 128), (3, 1, 77, 100), (5, 10, 130, 3000), (7, 16, 33, 256), (7, 17, 33, 256),
     (3, 160, 70, 513), (128, 1, 768, 2048), (128, 10, 2048, 768), (128, 160, 768, 2048),
+    (128, 160, 2048, 768), (5, 160, 130, 3000),
 ])
 def test_bnn_matmul_packed_experts_matches_plain(cuda, e, c, o, k):
     rng = np.random.default_rng(e * 1000 + c + k)
     kw = -(-k // 32)
     x, w = _expert_operands(rng, e, c, o, kw, k)
     fn = bnn_matmul.bnn_matmul_packed_experts
-    path = "stream" if c <= bnn_matmul.STREAM_MAX_M and kw % 4 == 0 else "tiled"
+    path = "stream" if c <= bnn_matmul.STREAM_MAX_M and kw % 4 == 0 else "mma"
     before = fn.launches
     out = _launched(fn, path, lambda: fn(x.to(cuda), w.to(cuda), k_bits=k))
     assert fn.launches == before + 1
     assert torch.equal(out.cpu(), ref.bnn_matmul_packed_experts_ref(x, w, k))
-    if path == "stream":  # the tiled route computes the same on any shape
-        out = _launched(fn, "tiled", lambda: bnn_matmul._launch_experts(
-            x.to(cuda), w.to(cuda), torch.empty_like(out), k, "tiled"))
+    # The other routes compute the same on any shape: mma where stream
+    # serves, and the first design, tiled, forced.
+    for forced in ("mma", "tiled") if path == "stream" else ("tiled",):
+        out = _launched(fn, forced, lambda: bnn_matmul._launch_experts(
+            x.to(cuda), w.to(cuda), torch.empty_like(out), k, forced))
         assert torch.equal(out.cpu(), ref.bnn_matmul_packed_experts_ref(x, w, k))
 
 
@@ -1367,19 +1405,19 @@ def _packed_per_call(cfg):
 def test_family_forward_on_cuda_matches_cpu(cuda, arch):
     """float32 logits on the card within 1e-4 of the CPU's largest magnitude
     (the packed GEMMs are exact; float32 products sum in another order), and
-    one forward's launches exactly the counted ones, on the tiled route."""
+    one forward's launches exactly the counted ones, on the mma route."""
     from repro_torch import models
 
     cfg = _tiny_family(arch)
     params = models.init_params(cfg, 1, device="cpu")
     want, _ = models.forward(params, _family_batch(cfg, "cpu"), cfg)
     packed, pack = bnn_matmul.bnn_matmul_packed, bitpack.bitpack
-    before = (packed.launches, packed.launches_by_route["tiled"], pack.launches)
+    before = (packed.launches, packed.launches_by_route["mma"], pack.launches)
     with torch.inference_mode():
         got, _ = models.forward(_to(params, cuda), _family_batch(cfg, cuda), cfg)
     torch.cuda.synchronize()
     n = _packed_per_call(cfg)
-    assert (packed.launches, packed.launches_by_route["tiled"], pack.launches) == tuple(b + n for b in before)
+    assert (packed.launches, packed.launches_by_route["mma"], pack.launches) == tuple(b + n for b in before)
     assert (n == 0) == (arch == "mamba2-1.3b")
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * scale)
@@ -1451,7 +1489,7 @@ def test_vlm_prefill_and_decode_on_cuda_match_cpu(cuda):
 def test_hubert_flash_is_full_attention_on_tma(cuda):
     """bf16 hubert with flash: one ``flash_attention`` launch a layer, every
     one full (non-causal) on the tma route, 6 packed launches a layer on the
-    tiled route; float32, flash's f32 route on the card within 2e-3 of plain
+    mma route; float32, flash's f32 route on the card within 2e-3 of plain
     attention on the CPU."""
     import dataclasses
 
@@ -1459,14 +1497,14 @@ def test_hubert_flash_is_full_attention_on_tma(cuda):
 
     cfg = dataclasses.replace(_tiny_family("hubert-xlarge", "bfloat16"), attn_impl="pallas_flash")
     fa, packed = flash_attention.flash_attention, bnn_matmul.bnn_matmul_packed
-    before = (dict(fa.launches_by_route), dict(fa.launches_by_mask), packed.launches_by_route["tiled"])
+    before = (dict(fa.launches_by_route), dict(fa.launches_by_mask), packed.launches_by_route["mma"])
     with torch.inference_mode():
         logits, _ = models.forward(models.init_params(cfg, 1, device=cuda), _family_batch(cfg, cuda, s=40), cfg)
     torch.cuda.synchronize()
     layers = cfg.num_layers
     assert {p: fa.launches_by_route[p] - before[0][p] for p in before[0]} == {"tma": layers, "wmma": 0, "f32": 0}
     assert {m: fa.launches_by_mask[m] - before[1][m] for m in before[1]} == {"causal": 0, "full": layers}
-    assert packed.launches_by_route["tiled"] - before[2] == 6 * layers
+    assert packed.launches_by_route["mma"] - before[2] == 6 * layers
     assert bool(torch.isfinite(logits).all())
 
     f32 = dataclasses.replace(cfg, dtype="float32", quant=QuantConfig())
@@ -1561,7 +1599,7 @@ def test_update_in_place_on_cuda_is_update(cuda, dtype, use_master):
 
 # (shape, quant): phi3 at published widths and 4 layers; the packed cells
 # launch ``bitpack`` and ``bnn_matmul_packed`` (decode on the stream route,
-# prefill tiled), training runs the plain path.
+# prefill on mma), training runs the plain path.
 DRYRUN_CASES = [
     (("dryrun_decode", 4096, 8, "decode"), "bnn_packed"),
     (("dryrun_prefill", 2048, 4, "prefill"), "bnn_packed"),

@@ -205,7 +205,7 @@ def test_counts_charge_kernel_costs_and_skip_views():
         op_counts.charge("bnn_matmul_packed", costs.bnn_matmul_packed, 4, 8, 2)
     assert counts.bytes == 0 and counts.aten_ops == 0
     assert counts.kernel_launches == {"bnn_matmul_packed": 1}
-    assert counts.kernel_bytes == cost.bytes and counts.kernel_seconds == cost.ops / hw.POPC_PER_S
+    assert counts.kernel_bytes == cost.bytes and counts.kernel_seconds == cost.ops / hw.INT8_TENSOR_OPS
     with op_counts.count() as counts:
         x + x[:1]
     assert counts.bytes == (4 * 64 + 64 + 4 * 64) * 4 and counts.aten_ops == 1

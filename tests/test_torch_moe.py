@@ -169,7 +169,7 @@ def test_expert_kernel_wrapper_checks_its_operands():
     assert bnn_matmul.experts_route(torch.zeros((2, 3, 4), dtype=torch.int32),
                                     torch.zeros((2, 5, 4), dtype=torch.int32)) == "stream"
     assert bnn_matmul.experts_route(torch.zeros((2, 17, 4), dtype=torch.int32),
-                                    torch.zeros((2, 5, 4), dtype=torch.int32)) == "tiled"
+                                    torch.zeros((2, 5, 4), dtype=torch.int32)) == "mma"
 
 
 @pytest.mark.parametrize("k", [64, 100])

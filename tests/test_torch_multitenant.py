@@ -525,8 +525,12 @@ def test_telemetry_slo_and_counters_match_reference(tenants3):
             jh = jobs.registry().histogram("mt.queue_delay_seconds", tenant=f"t{t}")
             assert th.count == jh.count
     finally:
+        # Off and emptied: the captured spans would otherwise outlive this
+        # test in both packages' global tracers.
         tobs.disable()
+        tobs.reset()
         jobs.disable()
+        jobs.reset()
     assert _telemetry_fields(ts.telemetry(tr)) == _telemetry_fields(js.telemetry(jr))
     assert ts.slo_tracker("t0") is not None and ts.slo_tracker("nobody") is None
     assert ts.telemetry(tr).render().splitlines()[0] == js.telemetry(jr).render().splitlines()[0]
@@ -554,6 +558,7 @@ def test_time_sliced_turns_reuse_cached_tables(tenants3):
         misses = reg.counter("dataplane.table_cache_misses_total").value
     finally:
         tobs.disable()
+        tobs.reset()
     turns = sum(st.slices for st in res.tenants)
     # Two lookups a turn (the parse tables and the hop's), every turn and
     # each tenant's warm call.

@@ -57,6 +57,7 @@ def test_h100_peaks():
     assert hw.INT32_OPS_PER_S == 64 * 132 * 1.98e9
     assert hw.POPC_PER_S == 16 * 132 * 1.98e9
     assert hw.BF16_TENSOR_FLOPS == 989e12
+    assert hw.INT8_TENSOR_OPS == 1979e12
 
 
 def test_kernel_costs_reproduce_the_recorded_bounds():
@@ -92,6 +93,25 @@ def test_kernel_costs_reproduce_the_recorded_bounds():
     assert rk.flash_attention(16, 2048, 80, causal=False).ops == 2 * rk.flash_attention(16, 2048, 80).ops
     with pytest.raises(ValueError, match="rates"):
         rk.packed_layer(1, 1, 1) + rk.bnn_matmul_packed(1, 1, 1)
+
+
+@pytest.mark.parametrize("m,bound", [
+    (128, (0.014649332616472966, "operations")),    # a prefill layer
+    (2048, (0.23438932186356745, "operations")),    # a scoring layer
+])
+def test_packed_gemm_counts_int8_tensor_operations(m, bound):
+    """The packed GEMM's operations are 2 M N Kw 32 int8 multiply-adds at
+    the tensor cores' rate, whatever route a launch takes: phi3-mini-3.8b's
+    seven projections (113.2 M weight bits a layer) at a prefill's and a
+    scoring pass's M.  Its bytes, and so the decode bound, do not change."""
+    cost = rk.bnn_matmul_packed(m, 3072, 96)
+    assert (cost.ops, cost.rate) == (2 * m * 3072 * 96 * 32, hw.INT8_TENSOR_OPS)
+    assert cost.bytes == (m * 96 + 3072 * 96 + m * 3072) * 4
+    projections = ((3072, 3072, 4), (3072, 8192, 2), (8192, 3072, 1))
+    assert sum(per * n * k for k, n, per in projections) == 113_246_208
+    assert rk.total(per * rk.bnn_matmul_packed(m, n, k // 32) for k, n, per in projections).bound_ms() == bound
+    experts = rk.bnn_matmul_packed_experts(128, 160, 768, 64)
+    assert (experts.ops, experts.rate) == (2 * 128 * 160 * 768 * 64 * 32, hw.INT8_TENSOR_OPS)
 
 
 def _small():
@@ -157,8 +177,12 @@ def test_gauges_carry_the_reference_names_and_only_when_obs_is_on():
                jplan.ExecutionPlan)
         got, want = _roofline_gauges(tobs.registry()), _roofline_gauges(jobs.registry())
     finally:
+        # Off and emptied: the captured spans would otherwise outlive this
+        # test in both packages' global tracers.
         tobs.disable()
+        tobs.reset()
         jobs.disable()
+        jobs.reset()
     assert set(got) == set(want)
     assert {path for _, path in got} == {"packed", "jnp", "packed+scan", "fleet4:packed"}
     for (name, path), value in got.items():

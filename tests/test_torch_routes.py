@@ -118,18 +118,19 @@ def test_packed_decode_sizes_take_stream(m, kw):
 
 @pytest.mark.parametrize("m", [tpacked.STREAM_MAX_M + 1, 128, 2048])
 def test_packed_rows_above_the_threshold_take_tiled(m):
-    assert tpacked.route(_words(m, 96), _words(3072, 96)) == "tiled"
+    # Every shape that took the first design's tiled route takes mma.
+    assert tpacked.route(_words(m, 96), _words(3072, 96)) == "mma"
 
 
 @pytest.mark.parametrize("kw", [1, 3, 97, 258])
 def test_packed_kw_not_a_multiple_of_4_takes_tiled(kw):
-    assert tpacked.route(_words(4, kw), _words(300, kw)) == "tiled"
+    assert tpacked.route(_words(4, kw), _words(300, kw)) == "mma"
 
 
 def test_packed_x_too_large_for_shared_memory_takes_tiled():
     kw = 48 * 1024 // (4 * tpacked.STREAM_MAX_M)
     assert tpacked.route(_words(tpacked.STREAM_MAX_M, kw), _words(8, kw)) == "stream"
-    assert tpacked.route(_words(tpacked.STREAM_MAX_M, kw + 4), _words(8, kw + 4)) == "tiled"
+    assert tpacked.route(_words(tpacked.STREAM_MAX_M, kw + 4), _words(8, kw + 4)) == "mma"
 
 
 @pytest.mark.parametrize("which", ["x", "w"])
@@ -137,12 +138,22 @@ def test_packed_x_too_large_for_shared_memory_takes_tiled():
 def test_packed_misaligned_operand_takes_tiled(which, nbytes):
     x = _offset((4, 96), torch.int32, nbytes) if which == "x" else _words(4, 96)
     w = _offset((300, 96), torch.int32, nbytes) if which == "w" else _words(300, 96)
-    assert tpacked.route(x, w) == "tiled"
+    assert tpacked.route(x, w) == "mma"
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 128, 2048, 131072])
+@pytest.mark.parametrize("kw", [1, 5, 96, 256])
+def test_packed_route_never_returns_tiled(m, kw):
+    """The first design is reached only through ``_launch(..., "tiled")``."""
+    x = torch.zeros((1, kw), dtype=torch.int32).expand(m, kw)  # route reads shape and data_ptr
+    got = tpacked.route(x, _words(8, kw))
+    assert got in ("stream", "mma")
+    assert got == ("stream" if m <= tpacked.STREAM_MAX_M and kw % 4 == 0 else "mma")
 
 
 def test_packed_cpu_calls_launch_nothing():
     fn = tpacked.bnn_matmul_packed
-    assert set(fn.launches_by_route) == {"stream", "tiled"}
+    assert set(fn.launches_by_route) == {"stream", "mma", "tiled"}
     before = (fn.launches, dict(fn.launches_by_route))
     for m in (4, 100):
         out = fn(_words(m, 96), _words(300, 96), k_bits=3000)

@@ -79,6 +79,35 @@ def worker(packets: int, device: str) -> dict:
     return out
 
 
+def run_turns(script: str, trees: list, order: str, worker_args: list, out: str | None) -> int:
+    """Run ``script --worker *worker_args`` once per letter of ``order``
+    (A names ``trees[0]``), each in a process of its own from that tree's
+    root with ``PYTHONPATH=<tree>/src`` and nothing of this tree on the
+    path; print (and append to ``out``) each run's last stdout line, a JSON
+    record, with the turn, letter and wall seconds added."""
+    for turn, letter in enumerate(order):
+        tree = os.path.abspath(trees[ord(letter) - ord("A")])
+        env = dict(os.environ, PYTHONPATH=os.path.join(tree, "src"))
+        t0 = time.perf_counter()
+        # Run from the tree's root by path (its own copy of the script may
+        # not exist): the worker imports that tree's modules.
+        argv = [os.path.abspath(script), "--worker", *worker_args]
+        code = f"import runpy, sys; sys.argv = {argv!r}; runpy.run_path(sys.argv[0], run_name='__main__')"
+        proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, cwd=tree)
+        if proc.returncode:
+            sys.stderr.write(proc.stdout + proc.stderr)
+            return proc.returncode
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec.update(turn=turn, letter=letter, wall_s=time.perf_counter() - t0)
+        line = json.dumps(rec)
+        print(line, flush=True)
+        if out:
+            os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+            with open(out, "a") as f:
+                f.write(line + "\n")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", help="source trees (directories holding src/repro_torch)")
@@ -91,28 +120,8 @@ def main(argv=None) -> int:
     if args.worker:
         print(json.dumps(worker(args.packets, args.device)))
         return 0
-    for turn, letter in enumerate(args.order):
-        tree = os.path.abspath(args.trees[ord(letter) - ord("A")])
-        env = dict(os.environ, PYTHONPATH=os.path.join(tree, "src"))
-        t0 = time.perf_counter()
-        # Run from the tree's root by path (its own copy of this file may
-        # not exist), with nothing of this tree on the path: the worker
-        # imports that tree's chip_smoke.py and repro_torch.
-        argv = [os.path.abspath(__file__), "--worker", "--packets", str(args.packets), "--device", args.device]
-        code = f"import runpy, sys; sys.argv = {argv!r}; runpy.run_path(sys.argv[0], run_name='__main__')"
-        proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, cwd=tree)
-        if proc.returncode:
-            sys.stderr.write(proc.stdout + proc.stderr)
-            return proc.returncode
-        rec = json.loads(proc.stdout.strip().splitlines()[-1])
-        rec.update(turn=turn, letter=letter, wall_s=time.perf_counter() - t0)
-        line = json.dumps(rec)
-        print(line, flush=True)
-        if args.out:
-            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-            with open(args.out, "a") as f:
-                f.write(line + "\n")
-    return 0
+    return run_turns(__file__, args.trees, args.order, ["--packets", str(args.packets), "--device", args.device],
+                     args.out)
 
 
 if __name__ == "__main__":
