@@ -132,12 +132,27 @@ What it does, in order:
       beside its plain version and, in turns (kernel, library, library,
       kernel), beside the one PyTorch call that computes the same function,
       where there is one;
+      ``chunked_attention`` (``check_chunked``: phi3's prefill at S = 2048
+      and 32,768, bf16 scores, qwen3-moe's GQA, deepseek-v2's and
+      minicpm3's MLA, a full ragged case, float32) and ``decode_attention``
+      (``check_decode``: phi3's incremental mode over a 32,768-position
+      cache at index 0, 128 and 32,767, float32, qwen3-moe and chatglm3 in
+      the in-cache mode at index 0 and 2047) against their plain versions,
+      bf16 within one bf16 ulp of |out| + the softmax-weighted mean |v|,
+      float32 within 1e-5 of the same; timed beside their plain versions
+      and ``scaled_dot_product_attention`` (a yardstick with other
+      roundings);
    b. drives the public binary-GEMM op ``ops.binary_matmul`` through both
       kernel implementations at a prefill-sized activation;
    c. serves 8 requests through the ``Engine`` (all 32 layers, bf16, packed
       XNOR-popcount projections) and checks that every packed projection
       went through ``bitpack`` (bf16 input, vec route) and
-      ``bnn_matmul_packed``, every decode-step launch on its stream route;
+      ``bnn_matmul_packed``, every decode-step launch on its stream route,
+      and that every prefill launched one ``chunked_attention`` a layer
+      (causal, mma) and every decode step one ``decode_attention`` a layer
+      in the model's mode (``attention_launches``; every served model
+      below the same way: none in MLA decode or an SSM, the hybrid's
+      shared block once a group);
    d. scores one 2048-token sequence with ``forward`` under
       ``attn_impl="pallas_flash"`` (one ``flash_attention`` launch per
       layer, every one on the tma route), and holds a 2-layer float32
@@ -199,8 +214,8 @@ What it does, in order:
       ``forward`` over 2048 seeded frames, one full (non-causal)
       ``flash_attention`` launch a layer on the tma route and 6 packed
       launches a layer (GELU FFN 2, attention 4);
-   every run's launches exact (``call_launches``), every decode-step GEMM on
-   the stream route, every scoring GEMM on mma;
+   every run's launches exact (``call_launches``, ``attention_launches``),
+   every decode-step GEMM on the stream route, every scoring GEMM on mma;
 12. trains the LMs (``drive_training``; every run launches no kernel: the
    training forward is the plain path, as the reference's reaches no
    Pallas kernel):
@@ -232,8 +247,11 @@ What it does, in order:
    encoder-only path, no kernel);
    prints each cell's batch against its global batch, step s, the peak
    against resident + estimate, tokens/s, the roofline bound, bottleneck,
-   floor and mfu; each cell ok, its output finite, its roofline fraction
-   and mfu in (0, 1], the counted step's launches those the count saw;
+   floor and mfu, and the counted step's kernel launches, kernel bytes and
+   top ops by bytes; each cell ok, its output finite, its roofline fraction
+   and mfu in (0, 1], the counted step's launches those the count saw, the
+   decode cells launching ``decode_attention`` and the prefill cell
+   ``chunked_attention`` (the training cell neither);
    then ``bitpack`` and ``bnn_matmul_packed`` at the prefill cell's own M
    (its batch x 32768 rows) for each of phi3's (K, N), the GEMM on the
    mma route, every row held against the plain versions and timed beside
@@ -244,7 +262,11 @@ What it does, in order:
    launches by route; the LM kernels' ``launches`` are phi3's (the expert
    GEMM's qwen3's) serving or scoring run's, their ``launches_by_path``
    every LM run's (the bit-pack kernel's LM launches, through its
-   ``bitpack`` wrapper, in ``bitpack_launches_by_path``).  The packed
+   ``bitpack`` wrapper, in ``bitpack_launches_by_path``); the attention
+   kernels' ``launches`` are phi3's serving run's, their ``ms`` the
+   dry-run cells' shapes (prefill of 32,768 tokens, decode over 32,768
+   keys), with other shapes' times under ``*_s2048``, ``*_index128`` and
+   ``*_chatglm3_2048``.  The packed
    GEMMs' ``ms`` and ``library_ms`` are the decode layer's (stream, and
    ``torch.matmul`` or ``torch.bmm``); every other time names its route or
    yardstick (``*_ms_mma``, ``*_ms_tiled_forced``, ``*_library_ms_torch_*``,
@@ -295,6 +317,8 @@ from repro_torch.serving.engine import FleetEngine  # noqa: E402
 from repro_torch import models  # noqa: E402
 from repro_torch.configs.base import QuantConfig, get_config  # noqa: E402
 from repro_torch.kernels import bnn_matmul, bnn_matmul_mxu, flash_attention, ref  # noqa: E402
+from repro_torch.kernels import chunked_attention as chunked_kernel  # noqa: E402
+from repro_torch.kernels import decode_attention as decode_kernel  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.configs.archs import ASSIGNED_ARCHS  # noqa: E402
@@ -1593,7 +1617,7 @@ COUNTED = dryrun.KERNELS   # every kernel wrapper, by name
 def zero_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
-        for by in ("launches_by_route", "launches_by_dtype", "launches_by_mask"):
+        for by in ("launches_by_route", "launches_by_dtype", "launches_by_mask", "launches_by_mode"):
             for key in getattr(fn, by, {}):
                 getattr(fn, by)[key] = 0
 
@@ -1616,6 +1640,29 @@ def routed(fn, path: str, call):
 BF16_ULP = 2.0 ** -7   # a bf16 value's last place, relative to the value, at most
 
 
+def within_rounding(what: str, out: torch.Tensor, want: torch.Tensor, mean_abs_v: torch.Tensor, rel: float,
+                    rms_limit: float | None = None) -> float:
+    """Fail unless every element of attention output ``out`` is within
+    ``rel`` x (|want| + the row's softmax-weighted mean of |v|) of its plain
+    version ``want``, and (with ``rms_limit``) its error's RMS within
+    ``rms_limit`` of the output's RMS; returns the max absolute difference."""
+    torch.cuda.synchronize()
+    if out.shape != want.shape or out.dtype != want.dtype:
+        raise AssertionError(f"{what}: kernel gives {out.dtype} {tuple(out.shape)}, "
+                             f"plain {want.dtype} {tuple(want.shape)}")
+    diff = (out.float() - want.float()).abs()
+    bound = rel * (want.float().abs() + mean_abs_v)
+    worst = float((diff / bound).max().item())
+    rms = float(diff.square().mean().sqrt().item()) / float(want.float().square().mean().sqrt().item())
+    top = float(diff.max().item())
+    if not (worst <= 1.0 and (rms_limit is None or rms <= rms_limit)):
+        raise AssertionError(f"{what}: max abs diff {top}, {worst} of the element-wise bound (limit 1), "
+                             f"RMS error {rms} of the output's RMS (limit {rms_limit})")
+    print(f"  {what}: max abs diff {top}; at most {worst} of the element-wise bound ({rel} of |out| + mean "
+          f"|v|, limit 1); RMS error {rms} of the output's RMS (limit {rms_limit})")
+    return top
+
+
 def close_attention(what: str, out: torch.Tensor, want: torch.Tensor, q, k, v, causal: bool) -> float:
     """Fail unless bf16 attention ``out`` is within what bf16 rounding allows
     of its plain version ``want`` at every element, and its error's RMS
@@ -1630,22 +1677,8 @@ def close_attention(what: str, out: torch.Tensor, want: torch.Tensor, q, k, v, c
     limit catches a fault spread thinly over many elements (a wrong scale,
     a share of the keys dropped), which the output's small values at
     S = 2048 would hide from an absolute tolerance."""
-    torch.cuda.synchronize()
-    if out.shape != want.shape or out.dtype != want.dtype:
-        raise AssertionError(f"{what}: kernel gives {out.dtype} {tuple(out.shape)}, "
-                             f"plain {want.dtype} {tuple(want.shape)}")
     mean_abs_v = flash_attention.flash_attention_plain(q.float(), k.float(), v.float().abs(), causal=causal)
-    diff = (out.float() - want.float()).abs()
-    bound = BF16_ULP * (want.float().abs() + mean_abs_v)
-    worst = float((diff / bound).max().item())
-    rms = float(diff.square().mean().sqrt().item()) / float(want.float().square().mean().sqrt().item())
-    top = float(diff.max().item())
-    if not (worst <= 1.0 and rms <= 2 * BF16_ULP):
-        raise AssertionError(f"{what}: max abs diff {top}, {worst} of the element-wise bound (limit 1), "
-                             f"RMS error {rms} of the output's RMS (limit {2 * BF16_ULP})")
-    print(f"  {what}: max abs diff {top}; at most {worst} of the element-wise bound (limit 1); RMS "
-          f"error {rms} of the output's RMS (limit {2 * BF16_ULP})")
-    return top
+    return within_rounding(what, out, want, mean_abs_v, BF16_ULP, 2 * BF16_ULP)
 
 
 def close(what: str, out: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -1946,6 +1979,174 @@ def check_flash(dev, cfg, gen) -> dict:
                 full_d80_plain_ms=time_ms(lambda: plain(qa, ka, va, causal=False), iters=5))
 
 
+PREFILL_LONG = 32768   # the dry run's prefill_32k prompt
+ATTN_Q_CHUNK = 1024    # the configs' attn_q_chunk: the plain version's query chunk
+SDPA_NOTE = ("torch.nn.functional.scaled_dot_product_attention at the same shapes (enable_gqa; decode on the "
+             "cache sliced to index + 1 keys): a timed yardstick the port never calls, with its own roundings "
+             "(p is not rounded to bf16 before PV, scores not rounded to bf16)")
+
+
+def attention_shape(arch: str) -> tuple[int, int, int, int]:
+    """(H, KVH, Dqk, Dv) of ``arch``'s attention: MLA's query heads read
+    their own expanded K and V."""
+    c = get_config(arch)
+    if c.attention == "mla":
+        return c.num_heads, c.num_heads, c.mla.qk_nope_dim + c.mla.qk_rope_dim, c.mla.v_head_dim
+    return c.num_heads, c.num_kv_heads, c.resolved_head_dim, c.resolved_head_dim
+
+
+def sdpa_gqa(q, k, v, causal: bool):
+    """``scaled_dot_product_attention`` on (B, S, heads, D) operands."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
+        enable_gqa=q.shape[2] != k.shape[2])
+
+
+def check_chunked(dev, gen) -> dict:
+    """``chunked_attention`` against its plain version on the card: phi3's
+    prefill at S = 2048 and PREFILL_LONG (bf16, causal, the mma route),
+    S = 2048 with bf16 scores, qwen3-moe's GQA (G 8, D 128), deepseek-v2's
+    and minicpm3's MLA (Dqk 192 / Dv 128 and 96 / 64), a full (non-causal)
+    ragged case and one float32 case (the f32 route); bf16 within
+    ``within_rounding``'s bf16 bound (one ulp of |out| + the softmax-weighted
+    mean |v|) and RMS limit, float32 within 1e-5 of the same (the sums are
+    in another order).  Timed at phi3's two prefills: kernel, plain and
+    SDPA, graphs in turns at 2048, events in turns at PREFILL_LONG."""
+    fn, plain = chunked_kernel.chunked_attention, chunked_kernel.chunked_attention_plain
+
+    def qkv(b, s, shape, dtype):
+        h, kvh, dqk, dv = shape
+        return tuple(torch.randn(x, generator=gen, device=dev).to(dtype)
+                     for x in ((b, s, h, dqk), (b, s, kvh, dqk), (b, s, kvh, dv)))
+
+    def held(label, q, k, v, causal=True, scores_dtype=torch.float32):
+        kw = dict(causal=causal, q_chunk=ATTN_Q_CHUNK, scale=1.0 / q.shape[-1] ** 0.5, scores_dtype=scores_dtype)
+        path = chunked_kernel.route(q)
+        out = routed(fn, path, lambda: fn(q, k, v, **kw))
+        want = plain(q, k, v, **kw)
+        mean_abs_v = plain(q.float(), k.float(), v.float().abs(), **kw)
+        bf16 = q.dtype == torch.bfloat16
+        err = within_rounding(f"chunked_attention {label} {tuple(q.shape)} x {tuple(v.shape)} {q.dtype} "
+                              f"causal={causal} scores {scores_dtype} ({path})", out, want, mean_abs_v,
+                              BF16_ULP if bf16 else 1e-5, 2 * BF16_ULP if bf16 else None)
+        del out, want, mean_abs_v
+        return err
+
+    phi3 = attention_shape(LM_ARCH)
+    rec = {}
+    q, k, v = qkv(1, LM_SCORE_LEN, phi3, torch.bfloat16)
+    err = held(f"{LM_ARCH} prefill", q, k, v)
+    err = max(err, held(f"{LM_ARCH} +sbf16", q, k, v, scores_dtype=torch.bfloat16))
+    for label, b, s, shape, causal, dtype in (
+            (MOE_ARCH, 1, LM_SCORE_LEN, attention_shape(MOE_ARCH), True, torch.bfloat16),
+            (MLA_ARCH, 1, LM_SCORE_LEN, attention_shape(MLA_ARCH), True, torch.bfloat16),
+            ("minicpm3-4b", 1, LM_SCORE_LEN, attention_shape("minicpm3-4b"), True, torch.bfloat16),
+            ("ragged, full", 2, 300, phi3, False, torch.bfloat16),
+            (f"{LM_ARCH} float32", 1, LM_SCORE_LEN, phi3, True, torch.float32)):
+        err = max(err, held(label, *qkv(b, s, shape, dtype), causal=causal))
+    kw = dict(causal=True, q_chunk=ATTN_Q_CHUNK, scale=1.0 / phi3[2] ** 0.5)
+    t = graphs_in_turns({"kernel": lambda: fn(q, k, v, **kw), "plain": lambda: plain(q, k, v, **kw),
+                         "library": lambda: sdpa_gqa(q, k, v, True)})
+    b_ms, b_by = costs.chunked_attention(1, LM_SCORE_LEN, LM_SCORE_LEN, *phi3, True).bound_ms()
+    rec.update(ms_s2048=t["kernel"], plain_ms_s2048=t["plain"], library_ms_s2048=t["library"],
+               bound_ms_s2048=b_ms, bound_by_s2048=b_by)
+    del q, k, v
+    q, k, v = qkv(1, PREFILL_LONG, phi3, torch.bfloat16)
+    err = max(err, held(f"{LM_ARCH} prefill_32k", q, k, v))
+    t = in_turns({"kernel": lambda: fn(q, k, v, **kw), "library": lambda: sdpa_gqa(q, k, v, True)},
+                 f"S={PREFILL_LONG}", iters=3)
+    b_ms, b_by = costs.chunked_attention(1, PREFILL_LONG, PREFILL_LONG, *phi3, True).bound_ms()
+    plain_ms = time_ms(lambda: plain(q, k, v, **kw), iters=1)
+    print(f"  chunked_attention {LM_ARCH} 1 x {PREFILL_LONG} x {phi3}: kernel {t['kernel']} ms, plain {plain_ms} "
+          f"ms, SDPA {t['library']} ms, bound {b_ms} ms ({b_by}); at 2048: {rec}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(source="src/repro_torch/csrc/chunked_attention.cu",
+                replaces="src/repro/layers/attention.py:104-152 (jnp chunked_attention)",
+                max_abs_err=err, ms=t["kernel"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=t["library"], library_call=SDPA_NOTE, shape=f"1 x {PREFILL_LONG} x {phi3}", **rec)
+
+
+def check_decode(dev, gen) -> dict:
+    """``decode_attention`` against its plain version on the card: phi3's
+    incremental mode at DECODE_M slots over a cache of PREFILL_LONG
+    positions at index 0, 128 and PREFILL_LONG - 1 (bf16) and one float32
+    case; qwen3-moe (G 8) and chatglm3 (G 16) in the in-cache mode at index
+    0 and S_max - 1; within ``within_rounding``'s bound (one bf16 ulp, or
+    1e-5 for float32, of |out| + the softmax-weighted mean |v|: float32 sums
+    in another order, one rounding to the output's type).  Timed as graphs
+    in turns (kernel, plain, SDPA on the cache sliced to index + 1 keys) at
+    phi3's PREFILL_LONG - 1 (the decode_32k layer), phi3's 128 and
+    chatglm3's S_max - 1."""
+    fn, plain = decode_kernel.decode_attention, decode_kernel.decode_attention_plain
+
+    def caches(shape, s_max, dtype):
+        h, kvh, d, dv = shape
+        q = torch.randn((DECODE_M, 1, h, d), generator=gen, device=dev).to(dtype)
+        kc = torch.randn((DECODE_M, s_max, kvh, d), generator=gen, device=dev).to(dtype)
+        vc = torch.randn((DECODE_M, s_max, kvh, dv), generator=gen, device=dev).to(dtype)
+        kn = torch.randn((DECODE_M, 1, kvh, d), generator=gen, device=dev).to(dtype)
+        vn = torch.randn((DECODE_M, 1, kvh, dv), generator=gen, device=dev).to(dtype)
+        return q, kc, vc, kn, vn
+
+    def held(label, q, kc, vc, kn, vn, index, incremental):
+        kw = dict(scale=1.0 / q.shape[-1] ** 0.5, k_new=kn if incremental else None,
+                  v_new=vn if incremental else None)
+        path = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        out = routed(fn, path, lambda: fn(q, kc, vc, index, **kw))
+        want = plain(q, kc, vc, index, **kw)
+        mean_abs_v = plain(q.float(), kc.float(), vc.float().abs(), index, scale=kw["scale"],
+                           k_new=kn.float() if incremental else None, v_new=vn.float().abs() if incremental else None)
+        bf16 = q.dtype == torch.bfloat16
+        mode = "incremental" if incremental else "in_cache"
+        return within_rounding(f"decode_attention {label} {tuple(q.shape)} over {tuple(kc.shape)} index {index} "
+                               f"({mode}, {path})", out, want, mean_abs_v, BF16_ULP if bf16 else 1e-5)
+
+    def timed(q, kc, vc, kn, vn, index, incremental):
+        kw = dict(scale=1.0 / q.shape[-1] ** 0.5, k_new=kn if incremental else None,
+                  v_new=vn if incremental else None)
+        keys = index + 1
+        ks, vs = kc[:, :keys], vc[:, :keys]
+        return graphs_in_turns({"kernel": lambda: fn(q, kc, vc, index, **kw),
+                                "plain": lambda: plain(q, kc, vc, index, **kw),
+                                "library": lambda: sdpa_gqa(q, ks, vs, False)})
+
+    phi3 = attention_shape(LM_ARCH)
+    args = caches(phi3, PREFILL_LONG, torch.bfloat16)
+    err = 0.0
+    for index in (0, 128, PREFILL_LONG - 1):
+        err = max(err, held(LM_ARCH, *args, index, True))
+    t_long = timed(*args, PREFILL_LONG - 1, True)
+    t_short = timed(*args, 128, True)
+    h, kvh, d, dv = phi3
+    b_ms, b_by = costs.decode_attention(DECODE_M, PREFILL_LONG, h, kvh, d, dv).bound_ms()
+    s_ms, s_by = costs.decode_attention(DECODE_M, 129, h, kvh, d, dv).bound_ms()
+    del args
+    err = max(err, held(f"{LM_ARCH} float32", *caches(phi3, LM_SCORE_LEN, torch.float32), 1000, True))
+    rec = dict(ms_index128=t_short["kernel"], plain_ms_index128=t_short["plain"],
+               library_ms_index128=t_short["library"], bound_ms_index128=s_ms, bound_by_index128=s_by)
+    for arch in (MOE_ARCH, "chatglm3-6b"):
+        shape = attention_shape(arch)
+        args = caches(shape, LM_SCORE_LEN, torch.bfloat16)
+        for index in (0, LM_SCORE_LEN - 1):
+            err = max(err, held(arch, *args, index, False))
+        if arch == "chatglm3-6b":
+            t = timed(*args, LM_SCORE_LEN - 1, False)
+            c_ms, c_by = costs.decode_attention(DECODE_M, LM_SCORE_LEN, *shape).bound_ms()
+            rec.update(ms_chatglm3_2048=t["kernel"], plain_ms_chatglm3_2048=t["plain"],
+                       library_ms_chatglm3_2048=t["library"], bound_ms_chatglm3_2048=c_ms)
+        del args
+    print(f"  decode_attention {LM_ARCH} {DECODE_M} x {PREFILL_LONG} keys x {phi3}: kernel {t_long['kernel']} ms, "
+          f"plain {t_long['plain']} ms, SDPA {t_long['library']} ms, bound {b_ms} ms ({b_by}); {rec}")
+    torch.cuda.empty_cache()
+    return dict(source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/layers/attention.py:155-185 (jnp decode_attention_incremental), "
+                         ":188-209 (jnp decode_attention)",
+                max_abs_err=err, ms=t_long["kernel"], plain_ms=t_long["plain"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=t_long["library"], library_call=SDPA_NOTE,
+                shape=f"{DECODE_M} x {PREFILL_LONG} keys x {phi3}", **rec)
+
+
 def drive_binary_matmul(dev, cfg, gen) -> dict:
     """The public op through both kernel implementations at a prefill-sized
     activation and phi3's up projection; both must equal the ±1 oracle."""
@@ -2008,6 +2209,35 @@ def call_launches(cfg) -> dict:
     return {name: n for name, n in per_call.items() if n}
 
 
+def attention_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """The attention kernels' launches in ``prefills`` prefills and
+    ``decode_steps`` decode steps, zeros left out: one ``chunked_attention``
+    an attention block a prefill (GQA and MLA alike), one
+    ``decode_attention`` an attention block a decode step of a GQA model
+    (MLA's absorbed decode is plain; an SSM has no attention block)."""
+    blocks = attention_blocks(cfg)
+    per_run = {"chunked_attention": blocks * prefills,
+               "decode_attention": blocks * decode_steps if cfg.attention == "gqa" else 0}
+    return {name: n for name, n in per_run.items() if n}
+
+
+def check_attention_launches(label: str, cfg, want: dict) -> None:
+    """Fail unless the attention kernels' launches by route, mask and mode
+    are all ``want``'s on the model's own: the type's route, causal, and
+    the decode mode of ``cfg.decode_cache_carry``."""
+    ca, de = chunked_kernel.chunked_attention, decode_kernel.decode_attention
+    bf16 = cfg.param_dtype() == torch.bfloat16
+    n = want.get("chunked_attention", 0)
+    if (ca.launches_by_route != {"mma": n * bf16, "f32": n * (not bf16)}
+            or ca.launches_by_mask != {"causal": n, "full": 0}):
+        raise AssertionError(f"{label}: chunked_attention by route {ca.launches_by_route}, by mask "
+                             f"{ca.launches_by_mask}: expected all {n} causal on its type's route")
+    n = want.get("decode_attention", 0)
+    mode = "incremental" if cfg.decode_cache_carry else "in_cache"
+    if de.launches_by_mode != {"incremental": 0, "in_cache": 0, mode: n}:
+        raise AssertionError(f"{label}: decode_attention by mode {de.launches_by_mode}: expected all {n} {mode}")
+
+
 def expected_routes(per_layer: int, cfg, decode_steps: int, sizes: list[int]) -> dict:
     """A kernel's launches by route over a serving run: ``per_layer``
     launches an attention block in each decode step (M or C of at most
@@ -2022,12 +2252,18 @@ def expected_routes(per_layer: int, cfg, decode_steps: int, sizes: list[int]) ->
 def check_serving_launches(label: str, cfg, launches: dict, calls: int, decode_steps: int,
                            sizes: list[int]) -> dict:
     """Fail unless a serving run's launches are exactly ``calls`` calls'
-    (``call_launches``), each kernel's by route ``expected_routes``, and
-    every ``bitpack`` launch bf16 on the vec route.  Returns the routes."""
-    want = {name: n * calls for name, n in call_launches(cfg).items()}
+    (``call_launches``) and the attention kernels' of its ``len(sizes)``
+    prefills and ``decode_steps`` steps (``attention_launches``, on the
+    model's route and mode), each packed kernel's by route
+    ``expected_routes``, and every ``bitpack`` launch bf16 on the vec route.
+    Returns the routes."""
+    attention = attention_launches(cfg, len(sizes), decode_steps)
+    want = {name: n * calls for name, n in call_launches(cfg).items()} | attention
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want} ({call_launches(cfg)} a call "
-                             f"x {calls} calls; {attention_blocks(cfg)} attention blocks a call)")
+                             f"x {calls} calls, and the attention kernels {attention}; "
+                             f"{attention_blocks(cfg)} attention blocks a call)")
+    check_attention_launches(label, cfg, attention)
     proj, experts = packed_launches(cfg)
     by_route = {}
     if proj:
@@ -2678,6 +2914,11 @@ DRYRUN_CELLS = (
 # The route every packed GEMM of a packed cell takes: a decode step's M is
 # its batch (<= 16), a prefill's M its batch x 32768 tokens.
 DRYRUN_GEMM_ROUTE = {"decode": "stream", "prefill": "mma"}
+# The attention kernel a cell of a model with attention launches (the
+# decode cells start from a filled cache, with no prefill); training runs
+# the plain paths.
+ATTENTION_KERNELS = ("chunked_attention", "decode_attention")
+DRYRUN_ATTENTION = {"decode": "decode_attention", "prefill": "chunked_attention", "train": None}
 HELD_ROWS = 8192   # rows a chunk of the prefill-size plain versions
 
 
@@ -2764,16 +3005,25 @@ def drive_dryrun(dev, gen) -> tuple[dict, dict]:
             if rec["launches"] != rec["counts"]["kernel_launches"]:
                 raise AssertionError(f"{label}: the counted step launched {rec['launches']}, the count saw "
                                      f"{rec['counts']['kernel_launches']}")
+            kind = dryrun_shapes.SHAPES[shape_name].kind
+            cell_cfg = get_config(arch, **overrides)
+            attention = {name: launches.get(name, 0) for name in ATTENTION_KERNELS}
+            want = DRYRUN_ATTENTION[kind] if attention_blocks(cell_cfg) else None
+            if {name: n > 0 for name, n in attention.items()} != {name: name == want for name in ATTENTION_KERNELS}:
+                raise AssertionError(f"{label}: attention launches {attention}, expected only {want}")
             if "quant" in overrides:
-                kind = dryrun_shapes.SHAPES[shape_name].kind
                 route = DRYRUN_GEMM_ROUTE[kind]
                 if not (launches.get("bitpack") and launches.get("bnn_matmul_packed")
                         and routes[route] == launches["bnn_matmul_packed"]):
                     raise AssertionError(f"{label}: launches {launches}, GEMM routes {routes} (want all {route})")
                 if kind == "prefill":
                     prefill_m.append(rec["batch"] * rec["seq_len"])
-            elif launches:
-                raise AssertionError(f"{label}: launched kernels at quant none: {launches}")
+            elif set(launches) - set(ATTENTION_KERNELS):
+                raise AssertionError(f"{label}: launched packed kernels at quant none: {launches}")
+            counts = rec["counts"]
+            print(f"  {label}: batch {rec['batch']}, counted step: kernel launches {counts['kernel_launches']}, "
+                  f"kernel bytes {counts['kernel_bytes']}, kernel seconds {counts['kernel_seconds']}, aten bytes "
+                  f"{counts['aten_bytes']}, top ops by bytes {counts['top_ops_by_bytes'][:4]}")
             print(f"  {label}: {time.perf_counter() - t_cell} s, launches {launches}, GEMM routes {routes}")
     times = {}
     for m in prefill_m:
@@ -2868,6 +3118,8 @@ def main() -> int:
     records["bnn_matmul_packed"] = check_bnn_matmul_packed(dev, cfg, gen)
     records["bnn_matmul_mxu"] = check_bnn_matmul_mxu(dev, cfg, gen)
     records["flash_attention"] = check_flash(dev, cfg, gen)
+    records["chunked_attention"] = check_chunked(dev, gen)
+    records["decode_attention"] = check_decode(dev, gen)
     records["bnn_matmul_mxu"]["launches"] = drive_binary_matmul(dev, cfg, gen)["bnn_matmul_mxu"]
     t0 = time.perf_counter()
     lm_params = models.init_params(cfg, SEED, device=dev)
@@ -2879,6 +3131,8 @@ def main() -> int:
     records["bnn_matmul_packed"]["launches"] = lm_paths["phi3 serving"]["bnn_matmul_packed"]
     records["bnn_matmul_packed"]["launches_by_route"] = serving_routes
     records["flash_attention"]["launches"] = lm_paths["phi3 scoring"]["flash_attention"]
+    for name in ATTENTION_KERNELS:
+        records[name]["launches"] = lm_paths["phi3 serving"][name]
     free(lm_params)
     print(f"LM phases: {time.perf_counter() - t_lm} s")
 
@@ -2916,7 +3170,8 @@ def main() -> int:
     print(f"dry-run phase: {time.perf_counter() - t_dry} s")
     # Every LM path's launches of each LM kernel; the bit-pack kernel's LM
     # launches (its ``bitpack`` wrapper) beside its packet-path record.
-    for name in ("bnn_matmul_packed", "bnn_matmul_mxu", "flash_attention", "bnn_matmul_packed_experts"):
+    for name in ("bnn_matmul_packed", "bnn_matmul_mxu", "flash_attention", "bnn_matmul_packed_experts",
+                 *ATTENTION_KERNELS):
         records[name]["launches_by_path"] = {path: got.get(name, 0) for path, got in lm_paths.items()}
     records["pack_bits_words"]["bitpack_launches_by_path"] = {
         path: got.get("bitpack", 0) for path, got in lm_paths.items()}

@@ -33,10 +33,13 @@
 //   arithmetic, and narrow rows (the packet path's 32- and 64-bit rows) pack
 //   several to a warp step; otherwise one 32-bit division gives (row, word)
 //   and vectors past the row's end count as 0.  Warps stride over the steps
-//   with 32-bit indices (the wrapper keeps every index below 2^31).
+//   with 32-bit word indices (the wrapper keeps the word count below 2^31);
+//   element offsets are 64-bit, so an input may pass 2^32 elements (a
+//   prefill of 8 x 32,768 rows of 8,192).
 // * scalar (ragged widths, misaligned views): one warp per word.  Lane k
 //   loads column 32*w + k and __ballot_sync collects the 32 predicates into
-//   one word with lane k in bit k; lane 0 stores it.  32-bit indices.
+//   one word with lane k in bit k; lane 0 stores it.  32-bit word indices,
+//   64-bit element offsets.
 
 #include "common.cuh"
 
@@ -89,15 +92,15 @@ pack_vec_kernel(const T* __restrict__ x, uint32_t* __restrict__ out, uint32_t n,
        step += (gridDim.x * kThreads) >> 5) {
     const uint32_t t0 = step * V, t = t0 + slot;  // the step's first word, this lane's word
     bool live;
-    uint32_t start;  // element offset of this lane's vector
+    size_t start;  // element offset of this lane's vector
     if (kFlat) {
       live = t < total;
-      start = t * 32 + sub * V;
+      start = static_cast<size_t>(t) * 32 + sub * V;
     } else {
       const uint32_t row = t / words;
       const uint32_t col = (t - row * words) * 32 + sub * V;
       live = t < total && col < n;
-      start = row * n + col;
+      start = static_cast<size_t>(row) * n + col;
     }
     uint32_t bits = 0;
     if (live) bits = vector_bits(__ldg(reinterpret_cast<const uint4*>(x + start)), x, thr) << (sub * V);
@@ -122,12 +125,12 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 pack_scalar_kernel(const T* __restrict__ x, uint32_t* __restrict__ out, uint32_t n, uint32_t words,
                    uint32_t total, int thr) {
-  const uint32_t task = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const uint32_t task = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const uint32_t lane = threadIdx.x & 31;
   if (task >= total) return;  // warp-uniform: every lane shares `task`
   const uint32_t row = task / words;
   const uint32_t col = (task - row * words) * 32 + lane;
-  const bool bit = col < n && predicate(x[row * n + col], thr);
+  const bool bit = col < n && predicate(x[static_cast<size_t>(row) * n + col], thr);
   const uint32_t packed = __ballot_sync(0xffffffffu, bit);
   if (lane == 0) out[task] = packed;
 }

@@ -39,8 +39,9 @@ from repro_torch.roofline import kernels as costs, ops as op_counts
 WORD = 32
 ROUTES = ("vec", "scalar")
 _ALIGN = 16  # bytes a vec-route load reads
-# The kernels index elements with 32-bit integers.
-_MAX_ELEMENTS = 1 << 31
+# The kernels index output words with 32-bit integers (element offsets are
+# 64-bit).
+_MAX_WORDS = 1 << 31
 
 # The input types bitpack takes, and their names in the C entry points.
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int32: "i32"}
@@ -103,8 +104,8 @@ def _pack(x: torch.Tensor, thr: int, wrapper) -> torch.Tensor:
     out = torch.empty((m, num_words(n)), dtype=torch.int32, device=x.device)
     if m == 0:
         return out
-    if m * out.shape[1] * WORD >= _MAX_ELEMENTS:
-        raise ValueError(f"{what}: a ({m}, {n}) input is beyond the kernels' 32-bit indices")
+    if m * out.shape[1] >= _MAX_WORDS:
+        raise ValueError(f"{what}: a ({m}, {n}) input is beyond the kernels' 32-bit word indices")
     return _launch(x, out, thr, route(x), wrapper)
 
 

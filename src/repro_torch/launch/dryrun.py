@@ -58,6 +58,7 @@ from repro_torch.configs.archs import ASSIGNED_ARCHS
 from repro_torch.configs.base import ModelConfig, QuantConfig, get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import bitpack, bnn_matmul, bnn_matmul_mxu, flash_attention, optable_exec, packed_layer
+from repro_torch.kernels import chunked_attention, decode_attention
 from repro_torch.launch import shapes as shp
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
 from repro_torch.models.model import cache_tensors, set_index
@@ -84,6 +85,8 @@ KERNELS = {
     "bnn_matmul_packed_experts": bnn_matmul.bnn_matmul_packed_experts,
     "bnn_matmul_mxu": bnn_matmul_mxu.bnn_matmul_mxu,
     "flash_attention": flash_attention.flash_attention,
+    "chunked_attention": chunked_attention.chunked_attention,
+    "decode_attention": decode_attention.decode_attention,
 }
 
 

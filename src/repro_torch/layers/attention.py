@@ -5,6 +5,12 @@ Layouts are the reference's: q (B, S, H, D), k/v (B, S, KVH, D), caches
 (L, B, S_max, KVH, D).  GQA is computed in grouped form (no KV head
 repetition) except on the flash path, whose kernel takes (B*H, S, D).
 
+``chunked_attention``, ``decode_attention_incremental`` and
+``decode_attention`` launch the ``chunked_attention`` and
+``decode_attention`` kernels on CUDA tensors; their plain versions
+(``*_plain``, the reference's jnp in PyTorch, kept in the kernel modules)
+run on CPU tensors and wherever autograd records.
+
 The decode paths write the new position into the cache tensors in place
 (the reference returns updated copies); a write past the cache's end lands
 on its last position, as ``lax.dynamic_update_slice`` clamps it.
@@ -17,6 +23,11 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import chunked_attention as chunked_kernel
+from repro_torch.kernels import decode_attention as decode_kernel
+from repro_torch.kernels.chunked_attention import chunked_attention_plain
+from repro_torch.kernels.decode_attention import decode_attention_incremental_plain
+from repro_torch.kernels.decode_attention import decode_attention_in_cache_plain as decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.layers import rope
 from repro_torch.layers.linear import dense_apply, dense_init
@@ -56,16 +67,6 @@ def attention_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.flo
     }
 
 
-def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q: (B, Sq, KVH, G, D), k: (B, Sk, KVH, D) -> (B, KVH, G, Sq, Sk) f32."""
-    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
-
-
-def _grouped_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """p: (B, KVH, G, Sq, Sk), v: (B, Sk, KVH, D) -> (B, Sq, KVH, G, D) f32."""
-    return torch.einsum("bhgqk,bkhd->bqhgd", p.float(), v.float())
-
-
 def _flash_full(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, scale: float
 ) -> torch.Tensor:
@@ -87,75 +88,57 @@ def _flash_full(
     return out.reshape(b, h, s, d).transpose(1, 2)
 
 
+def _autograd_records(*inputs: torch.Tensor) -> bool:
+    """Whether autograd would record through these inputs: grad mode on and
+    one of them requiring grad.  There the plain versions run, as the
+    reference's training forward reaches no Pallas kernel and the kernels
+    have no backward (``kernels/_build.py::refuse_grad``)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+
+
 def chunked_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, q_chunk: int,
     scale: float, scores_dtype=torch.float32,
 ) -> torch.Tensor:
-    """Softmax attention over full K/V, looping over query chunks.
+    """Softmax attention over full K/V (``chunked_attention_plain``): the
+    ``chunked_attention`` kernel on CUDA tensors, the plain version on CPU
+    tensors and where autograd records.
 
-    q: (B, S, H, D); k, v: (B, S, KVH, D).  Returns (B, S, H, D).  Scores are
-    float32 (or ``scores_dtype``); probabilities are rounded to q's type
-    before the PV product, which sums in float32.
+    q: (B, S, H, D); k, v: (B, S, KVH, D).  Returns (B, S, H, D).
     """
-    b, s, h, d = q.shape
-    kvh = k.shape[2]
-    dv = v.shape[-1]
-    g = h // kvh
-    q_chunk = min(q_chunk, s)
-    kpos = torch.arange(k.shape[1], device=q.device)
-    outs = []
-    for c0 in range(0, s, q_chunk):
-        qc = q[:, c0:c0 + q_chunk]
-        cq = qc.shape[1]
-        scores = _grouped_scores(qc.reshape(b, cq, kvh, g, d), k).to(scores_dtype)
-        scores = scores * torch.tensor(scale, dtype=scores_dtype)
-        if causal:
-            qpos = c0 + torch.arange(cq, device=q.device)
-            mask = kpos[None, :] <= qpos[:, None]                    # (Cq, Sk)
-            scores = scores.masked_fill(~mask, float("-inf"))
-        p = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        outs.append(_grouped_out(p, v).to(q.dtype).reshape(b, cq, h, dv))
-    return torch.cat(outs, dim=1)
+    fn = chunked_attention_plain if _autograd_records(q, k, v) else chunked_kernel.chunked_attention
+    return fn(q, k, v, causal=causal, q_chunk=q_chunk, scale=scale, scores_dtype=scores_dtype)
 
 
 def decode_attention_incremental(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
     v_new: torch.Tensor, index: int, *, scale: float,
 ) -> torch.Tensor:
-    """Decode attention WITHOUT writing the token into the cache first.
-
-    The cache (positions < index) is read-only; the current token's k/v are
-    attended as an explicit extra column, and the caller commits them.
+    """Decode attention WITHOUT writing the token into the cache first
+    (``decode_attention_incremental_plain``): the ``decode_attention``
+    kernel's incremental mode on CUDA tensors, the plain version on CPU
+    tensors and where autograd records.
 
     q: (B, 1, H, D); caches: (B, S, KVH, D); k_new/v_new: (B, 1, KVH, D).
     """
-    b, _, h, d = q.shape
-    kvh = k_cache.shape[2]
-    qg = q.reshape(b, 1, kvh, h // kvh, d)
-    s_c = _grouped_scores(qg, k_cache) * scale                        # (B, KVH, G, 1, S)
-    mask = torch.arange(k_cache.shape[1], device=q.device) < index
-    s_c = s_c.masked_fill(~mask, float("-inf"))
-    s_n = _grouped_scores(qg, k_new) * scale                          # (B, KVH, G, 1, 1)
-    p = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1)
-    out = _grouped_out(p[..., :-1], v_cache) + _grouped_out(p[..., -1:], v_new)
-    return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
+    if _autograd_records(q, k_cache, v_cache, k_new, v_new):
+        return decode_attention_incremental_plain(q, k_cache, v_cache, k_new, v_new, index, scale=scale)
+    return decode_kernel.decode_attention(q, k_cache, v_cache, index, scale=scale, k_new=k_new, v_new=v_new)
 
 
 def decode_attention(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, index: int, *, scale: float,
 ) -> torch.Tensor:
-    """Single-position attention against a cache.
+    """Single-position attention against a cache (``decode_attention_plain``):
+    the ``decode_attention`` kernel's in-cache mode on CUDA tensors, the
+    plain version on CPU tensors and where autograd records.
 
     q: (B, 1, H, D); caches: (B, S_max, KVH, D); ``index`` = position of the
     new token (attends to [0, index]).
     """
-    b, _, h, d = q.shape
-    kvh = k_cache.shape[2]
-    qg = q.reshape(b, 1, kvh, h // kvh, d)
-    scores = _grouped_scores(qg, k_cache) * scale
-    mask = torch.arange(k_cache.shape[1], device=q.device) <= index
-    p = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
-    return _grouped_out(p, v_cache).reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
+    if _autograd_records(q, k_cache, v_cache):
+        return decode_attention_plain(q, k_cache, v_cache, index, scale=scale)
+    return decode_kernel.decode_attention(q, k_cache, v_cache, index, scale=scale)
 
 
 def write_position(cache: torch.Tensor, new: torch.Tensor, index: int) -> None:

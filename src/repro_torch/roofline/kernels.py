@@ -119,3 +119,34 @@ def flash_attention(bh: int, s: int, d: int, causal: bool = True) -> Cost:
     ``causal``."""
     ops = 4 * bh * s * s * d
     return Cost(4 * bh * s * d * 2, ops // 2 if causal else ops, hw.BF16_TENSOR_FLOPS)
+
+
+def causal_pairs(s_q: int, s_k: int) -> int:
+    """(query, key) pairs a causal mask keeps: query i sees keys 0..i of
+    ``s_k``."""
+    full = min(s_q, s_k)            # rows i < s_k see i + 1 keys
+    return full * (full + 1) // 2 + (s_q - full) * s_k
+
+
+def chunked_attention(b: int, s_q: int, s_k: int, h: int, kvh: int, dqk: int, dv: int, causal: bool,
+                      itemsize: int = 2) -> Cost:
+    """Softmax attention of (b, s_q, h, dqk) queries over (b, s_k, kvh, dqk)
+    keys and (b, s_k, kvh, dv) values: q, k, v read and the (b, s_q, h, dv)
+    output written once, in their type; 2 (dqk + dv) operations a (query,
+    key) pair of each head, the causal pairs only when ``causal``, on the
+    bf16 tensor cores (float32 inputs: the CUDA cores' float32 rate).  A
+    second pass of the QK product is a design's cost, not the function's."""
+    pairs = causal_pairs(s_q, s_k) if causal else s_q * s_k
+    moved = (b * s_q * h * (dqk + dv) + b * s_k * kvh * (dqk + dv)) * itemsize
+    rate = hw.BF16_TENSOR_FLOPS if itemsize == 2 else hw.FP32_FLOPS
+    return Cost(moved, 2 * b * h * pairs * (dqk + dv), rate)
+
+
+def decode_attention(b: int, keys: int, h: int, kvh: int, d: int, dv: int, itemsize: int = 2) -> Cost:
+    """One decode position's attention over ``keys`` positions (the cache
+    up to ``index`` and, incremental, the new column): q (b, h, d) read,
+    each of the ``keys`` K and V rows of every (b, kv head) read once in
+    its type, the (b, h, dv) output written; 2 (d + dv) float32 operations
+    a key of each head, on the CUDA cores."""
+    moved = (b * h * (d + dv) + b * keys * kvh * (d + dv)) * itemsize
+    return Cost(moved, 2 * b * h * keys * (d + dv), hw.FP32_FLOPS)

@@ -268,6 +268,7 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.core.compiler, repro_torch.dataplane.executor, "
         "repro_torch.dataplane.traffic, repro_torch.kernels._build, "
         "repro_torch.kernels.ops, repro_torch.kernels.flash_attention, "
+        "repro_torch.kernels.chunked_attention, repro_torch.kernels.decode_attention, "
         "repro_torch.configs.archs, repro_torch.layers.attention, repro_torch.layers.ffn, "
         "repro_torch.models.model, repro_torch.serving.engine, repro_torch.obs.lm_profile, "
         "repro_torch.core.throughput, repro_torch.core.p4gen, repro_torch.core.export, "

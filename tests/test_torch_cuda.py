@@ -1635,3 +1635,211 @@ def test_dryrun_cell_on_cuda(cuda, tmp_path, shape, mode):
     assert 0 < roof["roofline_fraction"] <= 1 and 0 < roof["mfu"] <= 1
     assert roof["measured_step_s"] == rec["step_s"]["median"] > 0
     assert 0 < roof["floor_fraction"] <= 1 and rec["measure_s"] > 0
+
+
+# -- the attention that serving runs: chunked_attention and decode_attention ----------
+
+from repro_torch.kernels import chunked_attention as chunked  # noqa: E402
+from repro_torch.kernels import decode_attention as decode  # noqa: E402
+
+BF16_ULP = 2.0 ** -7
+
+
+def _within_rounding(got, want, mean_abs_v, rel):
+    """Every element within ``rel`` of (|want| + the row's softmax-weighted
+    mean of |v|): for bf16 (``rel`` one bf16 ulp) each side rounds its
+    float32 result once and, in prefill, its weights p to bf16; for float32
+    (``rel`` 1e-5) the sums are taken in another order."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    bound = rel * (want.float().abs() + mean_abs_v)
+    assert bool((diff <= bound).all()), float((diff / bound).max())
+
+
+def _qkv(b, s, h, kvh, dqk, dv, dtype, seed, cuda):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, s, h, dqk), generator=gen)
+    k = torch.randn((b, s, kvh, dqk), generator=gen)
+    v = torch.randn((b, s, kvh, dv), generator=gen)
+    return (t.to(cuda, dtype) for t in (q, k, v))
+
+
+def _check_chunked(q, k, v, causal, scores_dtype=torch.float32, path=None):
+    scale = 1.0 / q.shape[-1] ** 0.5
+    kw = dict(causal=causal, q_chunk=32, scale=scale, scores_dtype=scores_dtype)
+    fn = chunked.chunked_attention
+    got = _launched(fn, path or chunked.route(q), lambda: fn(q, k, v, **kw))
+    want = chunked.chunked_attention_plain(q, k, v, **kw)
+    mean_abs_v = chunked.chunked_attention_plain(q.float(), k.float(), v.float().abs(), **kw)
+    _within_rounding(got, want, mean_abs_v, BF16_ULP if q.dtype == torch.bfloat16 else 1e-5)
+
+
+# (S, H, KVH, Dqk, Dv): S around the 64-row tiles, G of 1 to 16, the model
+# head dims (64, 80, 96, 128), MLA's 192 / 128 and 96 / 64, D = 20 (element
+# copies).
+CHUNKED_SHAPES = [(1, 4, 4, 64, 64), (63, 4, 2, 96, 96), (64, 8, 1, 128, 128), (65, 2, 2, 80, 80),
+                  (130, 16, 1, 64, 64), (300, 4, 4, 192, 128), (77, 2, 2, 96, 64), (100, 4, 2, 20, 20)]
+
+
+@pytest.mark.parametrize("shape", CHUNKED_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_chunked_attention_kernel_matches_plain(cuda, shape, causal, dtype):
+    s, h, kvh, dqk, dv = shape
+    _check_chunked(*_qkv(2, s, h, kvh, dqk, dv, dtype, s + dqk, cuda), causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(65, 4, 2, 96, 96), (300, 4, 4, 192, 128)])
+def test_chunked_attention_bf16_scores(cuda, dtype, shape):
+    s, h, kvh, dqk, dv = shape
+    _check_chunked(*_qkv(2, s, h, kvh, dqk, dv, dtype, 7, cuda), True, torch.bfloat16)
+
+
+def test_chunked_attention_long_prompt_and_misaligned_operand(cuda):
+    q, k, v = _qkv(1, 2048, 8, 2, 96, 96, torch.bfloat16, 3, cuda)
+    _check_chunked(q, k, v, True)
+    _check_chunked(_shifted(q, 2), k, v, True)   # element copies: the kernel's other loader
+
+
+def _caches(b, s_max, h, kvh, d, dtype, seed, cuda, layers=1):
+    """q (B, 1, H, D), caches of layer ``layers - 1`` of (L, B, S_max, KVH,
+    D) stacks (a view, as the model passes them), k_new, v_new."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, 1, h, d), generator=gen).to(cuda, dtype)
+    kc, vc = (torch.randn((layers, b, s_max, kvh, d), generator=gen).to(cuda, dtype)[-1] for _ in range(2))
+    kn, vn = (torch.randn((b, 1, kvh, d), generator=gen).to(cuda, dtype) for _ in range(2))
+    return q, kc, vc, kn, vn
+
+
+def _check_decode(q, kc, vc, index, kn=None, vn=None):
+    scale = 1.0 / q.shape[-1] ** 0.5
+    fn = decode.decode_attention
+    mode = "in_cache" if kn is None else "incremental"
+    before = dict(fn.launches_by_mode)
+    path = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    got = _launched(fn, path, lambda: fn(q, kc, vc, index, scale=scale, k_new=kn, v_new=vn))
+    assert fn.launches_by_mode[mode] == before[mode] + 1
+    want = decode.decode_attention_plain(q, kc, vc, index, scale=scale, k_new=kn, v_new=vn)
+    mean_abs_v = decode.decode_attention_plain(
+        q.float(), kc.float(), vc.float().abs(), index, scale=scale,
+        k_new=None if kn is None else kn.float(), v_new=None if vn is None else vn.float().abs())
+    _within_rounding(got, want, mean_abs_v, BF16_ULP if q.dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("index", [0, 1, 63, 64, 65, 1000, 2047])
+@pytest.mark.parametrize("mode", ["incremental", "in_cache"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_kernel_matches_plain(cuda, index, mode, dtype):
+    q, kc, vc, kn, vn = _caches(3, 2048, 8, 2, 96, dtype, index, cuda, layers=2)
+    if mode == "incremental":
+        _check_decode(q, kc, vc, index, kn, vn)
+    else:
+        _check_decode(q, kc, vc, index)
+
+
+# (H, KVH, D): phi3 (G 1, D 96), qwen3 (G 8, D 128), chatglm3 (G 16, D 128),
+# stablelm (D 80), internvl2 (G 2, D 128), zamba2 (D 64), G 32 at D 64, G 4
+# and 3, and D = 20 (element copies).
+@pytest.mark.parametrize("heads", [(32, 32, 96), (32, 4, 128), (32, 2, 128), (32, 32, 80), (16, 8, 128),
+                                   (8, 8, 64), (32, 1, 64), (8, 2, 96), (6, 2, 64), (4, 2, 20)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_model_head_shapes(cuda, heads, dtype):
+    h, kvh, d = heads
+    q, kc, vc, kn, vn = _caches(4, 300, h, kvh, d, dtype, d, cuda)
+    _check_decode(q, kc, vc, 299, kn, vn)
+    _check_decode(q, kc, vc, 299)
+    _check_decode(q, kc, vc, 5000)   # past the end: the whole cache, as the plain masks keep it
+
+
+def test_decode_attention_long_cache_and_misaligned_cache(cuda):
+    q, kc, vc, kn, vn = _caches(4, 32768, 32, 32, 96, torch.bfloat16, 1, cuda)
+    _check_decode(q, kc, vc, 32767, kn, vn)
+    _check_decode(q, _shifted(kc, 2), vc, 32767, kn, vn)
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    """Mixed types, shapes that do not fit and inputs that require grad
+    raise before any launch."""
+    q, k, v = _qkv(1, 16, 4, 2, 32, 32, torch.bfloat16, 0, cuda)
+    qd, kc, vc, kn, vn = _caches(1, 16, 4, 2, 32, torch.bfloat16, 0, cuda)
+    kw = dict(causal=True, q_chunk=8, scale=0.2)
+    calls = [
+        lambda: chunked.chunked_attention(q, k.float(), v, **kw),
+        lambda: chunked.chunked_attention(q, k[:, :, :1].expand(1, 16, 3, 32), v, **kw),
+        lambda: chunked.chunked_attention(q.to(torch.float16), k, v, **kw),
+        lambda: decode.decode_attention(qd, kc.float(), vc, 3, scale=0.2),
+        lambda: decode.decode_attention(qd, kc, vc, 3, scale=0.2, k_new=kn),
+        lambda: decode.decode_attention(qd, kc[:, :, :1], vc, 3, scale=0.2),
+        lambda: decode.decode_attention(qd, kc, vc, -1, scale=0.2),
+        lambda: decode.decode_attention(torch.cat([qd] * 16, dim=2), kc[:, :, :1], vc[:, :, :1], 3, scale=0.2),
+    ]
+    before = (chunked.chunked_attention.launches, decode.decode_attention.launches)
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()
+    qg = q.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="item 18"):
+        chunked.chunked_attention(qg, k, v, **kw)
+    with pytest.raises(RuntimeError, match="item 18"):
+        decode.decode_attention(qd.clone().requires_grad_(True), kc, vc, 3, scale=0.2, k_new=kn, v_new=vn)
+    assert (chunked.chunked_attention.launches, decode.decode_attention.launches) == before
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "chatglm3-6b"])
+def test_gqa_prefill_and_decode_on_cuda_match_cpu(cuda, arch):
+    """A tiny float32 model's prefill and three decode steps on the card
+    against the CPU's, logits within 1e-4 of their scale: one
+    ``chunked_attention`` launch a layer a prefill, one ``decode_attention``
+    a layer a step, in the model's mode (phi3 carries the new token,
+    chatglm3 writes it into the cache first)."""
+    from repro_torch import models
+
+    cfg = get_config(arch, num_layers=2, d_model=64, num_heads=8, num_kv_heads=2, head_dim=16, d_ff=128,
+                     vocab_size=97, attn_q_chunk=8, init_std=0.5, dtype="float32")
+    params = models.init_params(cfg, 4, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 97, (2, 11)))
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        ca, de = chunked.chunked_attention, decode.decode_attention
+        before = (ca.launches, de.launches, dict(de.launches_by_mode))
+        logits, cache = models.prefill(p, {"tokens": tokens.to(dev)}, cfg)
+        full = models.init_cache(cfg, 2, 32, device=dev)
+        for dst, src in zip(models.model.cache_tensors(full), models.model.cache_tensors(cache)):
+            dst[:, :, : src.shape[2]] = src
+        cache = models.model.set_index(full, 11)
+        outs = [logits]
+        token = logits.argmax(-1)
+        for _ in range(3):
+            logits, cache = models.decode_step(p, token, cache, cfg)
+            outs.append(logits)
+            token = logits.argmax(-1)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            mode = "incremental" if cfg.decode_cache_carry else "in_cache"
+            assert (ca.launches - before[0], de.launches - before[1]) == (cfg.num_layers, 3 * cfg.num_layers)
+            assert de.launches_by_mode[mode] - before[2][mode] == 3 * cfg.num_layers
+        runs[str(dev)] = [o.cpu() for o in outs]
+    for got, want in zip(runs[str(cuda)], runs["cpu"]):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("fn,n", [("bitpack", 8192), ("pack_bits_words", 8190)])
+def test_bitpack_past_2_31_elements(cuda, fn, n):
+    """A prefill of 8 x 32,768 rows of phi3's 8,192-wide FFN activations
+    (bf16, the vec route) has 2^31 elements: the kernels' element offsets
+    are 64-bit.  A ragged width of {0, 1} bits takes the scalar route."""
+    m = (1 << 31) // n + 64
+    if fn == "bitpack":
+        x, thr = torch.randn((m, n), dtype=torch.bfloat16, device=cuda), 0
+    else:
+        x, thr = torch.randint(0, 2, (m, n), dtype=torch.int32, device=cuda), 1
+    path = "vec" if n % 8 == 0 else "scalar"
+    assert bitpack.route(x) == path
+    wrapper = getattr(bitpack, fn)
+    out = _launched(wrapper, path, lambda: wrapper(x))
+    for rows in (slice(0, 64), slice(m // 2 - 32, m // 2 + 32), slice(m - 64, m)):
+        assert torch.equal(out[rows], bitpack.pack_ge_plain(x[rows], thr))

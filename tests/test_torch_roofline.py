@@ -114,6 +114,36 @@ def test_packed_gemm_counts_int8_tensor_operations(m, bound):
     assert (experts.ops, experts.rate) == (2 * 128 * 160 * 768 * 64 * 32, hw.INT8_TENSOR_OPS)
 
 
+def test_attention_costs_by_hand():
+    """``chunked_attention``: q, k, v and out once, 2 (Dqk + Dv) operations
+    a (query, key) pair of each head, S (S + 1) / 2 causal pairs, at the bf16
+    tensor cores' rate (float32: the CUDA cores'); phi3-mini-3.8b's
+    prefill_32k layer is 1.32e13 operations at batch 2, 13.3 ms.
+    ``decode_attention``: q and out, and each of the keys' K and V rows of
+    every (batch, KV head) once; float32 operations on the CUDA cores, so
+    bytes bound it: phi3's decode_32k layer reads 1.61 GB, 0.48 ms."""
+    assert [rk.causal_pairs(s, s) for s in (1, 2, 5)] == [1, 3, 15]
+    assert rk.causal_pairs(5, 3) == 1 + 2 + 3 + 3 + 3 and rk.causal_pairs(3, 5) == 6
+    c = rk.chunked_attention(2, 32768, 32768, 32, 32, 96, 96, True)
+    assert c.ops == 2 * 2 * 2 * 32 * (32768 * 32769 // 2) * 96 and c.rate == hw.BF16_TENSOR_FLOPS
+    assert c.bytes == 2 * 32768 * (32 + 32) * (96 + 96) * 2
+    assert abs(c.ops - 1.32e13) < 0.01e13 and c.bound_ms()[1] == "operations"
+    assert abs(c.bound_ms()[0] - 13.34) < 0.01
+    # MLA (deepseek-v2): Dqk 192, Dv 128, 128 heads reading their own K, V
+    mla = rk.chunked_attention(1, 2048, 2048, 128, 128, 192, 128, False)
+    assert mla.ops == 2 * 128 * 2048 * 2048 * (192 + 128)
+    assert mla.bytes == (2048 * 128 * 320 + 2048 * 128 * 320) * 2
+    f32 = rk.chunked_attention(1, 64, 64, 4, 2, 16, 16, True, itemsize=4)
+    assert f32.rate == hw.FP32_FLOPS and f32.bytes == (64 * 4 * 32 + 64 * 2 * 32) * 4
+    d = rk.decode_attention(4, 32768, 32, 32, 96, 96)
+    assert d.bytes == (4 * 32 * 192 + 4 * 32768 * 32 * 192) * 2 and d.rate == hw.FP32_FLOPS
+    assert d.ops == 2 * 4 * 32 * 32768 * 192
+    assert d.bound_ms()[1] == "bytes" and abs(d.bound_ms()[0] - 0.481) < 0.001
+    # GQA reads each K and V row once for its G query heads
+    g = rk.decode_attention(4, 2048, 32, 2, 128, 128)
+    assert g.bytes == (4 * 32 * 256 + 4 * 2048 * 2 * 256) * 2
+
+
 def _small():
     rng = np.random.default_rng(3)
     sizes = (16, 8, 4)
