@@ -133,15 +133,16 @@ What it does, in order:
       kernel), beside the one PyTorch call that computes the same function,
       where there is one;
       ``chunked_attention`` (``check_chunked``: phi3's prefill at S = 2048
-      and 32,768, bf16 scores, qwen3-moe's GQA, deepseek-v2's and
-      minicpm3's MLA, a full ragged case, float32) and ``decode_attention``
-      (``check_decode``: phi3's incremental mode over a 32,768-position
-      cache at index 0, 128 and 32,767, float32, qwen3-moe and chatglm3 in
-      the in-cache mode at index 0 and 2047) against their plain versions,
-      bf16 within one bf16 ulp of |out| + the softmax-weighted mean |v|,
-      float32 within 1e-5 of the same; timed beside their plain versions
-      and ``scaled_dot_product_attention`` (a yardstick with other
-      roundings);
+      and 32,768, bf16 scores, qwen3-moe's GQA at 2048 and 32,768,
+      deepseek-v2's and minicpm3's MLA, a full ragged case, each bf16 case
+      on the tma route and on the first design's mma route, forced; float32) and
+      ``decode_attention`` (``check_decode``: phi3's incremental mode over a
+      32,768-position cache at index 0, 128 and 32,767, float32, qwen3-moe
+      and chatglm3 in the in-cache mode at index 0 and 2047, qwen3-moe over
+      32,768 keys) against their plain versions, bf16 within one bf16 ulp
+      of |out| + the softmax-weighted mean |v|, float32 within 1e-5 of the
+      same; timed beside their plain versions, the forced mma route and
+      ``scaled_dot_product_attention`` (a yardstick with other roundings);
    b. drives the public binary-GEMM op ``ops.binary_matmul`` through both
       kernel implementations at a prefill-sized activation;
    c. serves 8 requests through the ``Engine`` (all 32 layers, bf16, packed
@@ -149,7 +150,7 @@ What it does, in order:
       went through ``bitpack`` (bf16 input, vec route) and
       ``bnn_matmul_packed``, every decode-step launch on its stream route,
       and that every prefill launched one ``chunked_attention`` a layer
-      (causal, mma) and every decode step one ``decode_attention`` a layer
+      (causal, tma) and every decode step one ``decode_attention`` a layer
       in the model's mode (``attention_launches``; every served model
       below the same way: none in MLA decode or an SSM, the hybrid's
       shared block once a group);
@@ -2004,14 +2005,16 @@ def sdpa_gqa(q, k, v, causal: bool):
 
 def check_chunked(dev, gen) -> dict:
     """``chunked_attention`` against its plain version on the card: phi3's
-    prefill at S = 2048 and PREFILL_LONG (bf16, causal, the mma route),
-    S = 2048 with bf16 scores, qwen3-moe's GQA (G 8, D 128), deepseek-v2's
-    and minicpm3's MLA (Dqk 192 / Dv 128 and 96 / 64), a full (non-causal)
-    ragged case and one float32 case (the f32 route); bf16 within
-    ``within_rounding``'s bf16 bound (one ulp of |out| + the softmax-weighted
-    mean |v|) and RMS limit, float32 within 1e-5 of the same (the sums are
-    in another order).  Timed at phi3's two prefills: kernel, plain and
-    SDPA, graphs in turns at 2048, events in turns at PREFILL_LONG."""
+    prefill at S = 2048 and PREFILL_LONG (bf16, causal), S = 2048 with bf16
+    scores, qwen3-moe's GQA (G 8, D 128) at 2048 and PREFILL_LONG,
+    deepseek-v2's and minicpm3's MLA (Dqk 192 / Dv 128 and 96 / 64) and a
+    full (non-causal) ragged case, each on the tma route and on the first
+    design's mma route (forced); one float32 case (the f32 route); bf16 within
+    ``within_rounding``'s bf16 bound (one ulp of |out| + the
+    softmax-weighted mean |v|) and RMS limit, float32 within 1e-5 of the
+    same (the sums are in another order).  Timed at phi3's two prefills and
+    qwen3-moe's long one: tma, mma (forced), SDPA and (but at qwen3's)
+    plain, graphs in turns at 2048, events in turns at PREFILL_LONG."""
     fn, plain = chunked_kernel.chunked_attention, chunked_kernel.chunked_attention_plain
 
     def qkv(b, s, shape, dtype):
@@ -2019,52 +2022,80 @@ def check_chunked(dev, gen) -> dict:
         return tuple(torch.randn(x, generator=gen, device=dev).to(dtype)
                      for x in ((b, s, h, dqk), (b, s, kvh, dqk), (b, s, kvh, dv)))
 
+    def kwargs(q, causal=True, scores_dtype=torch.float32):
+        return dict(causal=causal, q_chunk=ATTN_Q_CHUNK, scale=1.0 / q.shape[-1] ** 0.5, scores_dtype=scores_dtype)
+
+    def on(path, q, k, v, kw):
+        """The call that launches route ``path``: the wrapper on its own
+        route, else the route forced."""
+        if path == chunked_kernel.route(q, k, v):
+            return lambda: fn(q, k, v, **kw)
+        out = torch.empty((*q.shape[:3], v.shape[3]), dtype=q.dtype, device=q.device)
+        launch_kw = {key: kw[key] for key in ("causal", "scale", "scores_dtype")}
+        return lambda: chunked_kernel._launch(q, k, v, out, path, **launch_kw)
+
     def held(label, q, k, v, causal=True, scores_dtype=torch.float32):
-        kw = dict(causal=causal, q_chunk=ATTN_Q_CHUNK, scale=1.0 / q.shape[-1] ** 0.5, scores_dtype=scores_dtype)
-        path = chunked_kernel.route(q)
-        out = routed(fn, path, lambda: fn(q, k, v, **kw))
+        kw = kwargs(q, causal, scores_dtype)
         want = plain(q, k, v, **kw)
         mean_abs_v = plain(q.float(), k.float(), v.float().abs(), **kw)
         bf16 = q.dtype == torch.bfloat16
-        err = within_rounding(f"chunked_attention {label} {tuple(q.shape)} x {tuple(v.shape)} {q.dtype} "
-                              f"causal={causal} scores {scores_dtype} ({path})", out, want, mean_abs_v,
-                              BF16_ULP if bf16 else 1e-5, 2 * BF16_ULP if bf16 else None)
-        del out, want, mean_abs_v
+        err = 0.0
+        for path in ("tma", "mma") if bf16 else ("f32",):
+            out = routed(fn, path, on(path, q, k, v, kw))
+            err = max(err, within_rounding(
+                f"chunked_attention {label} {tuple(q.shape)} x {tuple(v.shape)} {q.dtype} causal={causal} "
+                f"scores {scores_dtype} ({path})", out, want, mean_abs_v, BF16_ULP if bf16 else 1e-5,
+                2 * BF16_ULP if bf16 else None))
+            del out
+        del want, mean_abs_v
         return err
 
-    phi3 = attention_shape(LM_ARCH)
-    rec = {}
+    def long_prefill(arch, shape, with_plain):
+        """Hold and time ``arch``'s prefill of PREFILL_LONG tokens."""
+        q, k, v = qkv(1, PREFILL_LONG, shape, torch.bfloat16)
+        err = held(f"{arch} prefill_32k", q, k, v)
+        kw = kwargs(q)
+        t = in_turns({"kernel": on("tma", q, k, v, kw), "mma": on("mma", q, k, v, kw),
+                      "library": lambda: sdpa_gqa(q, k, v, True)}, f"{arch} S={PREFILL_LONG}", iters=3)
+        t["plain"] = time_ms(lambda: plain(q, k, v, **kw), iters=1) if with_plain else None
+        t["bound"], t["bound_by"] = costs.chunked_attention(1, PREFILL_LONG, PREFILL_LONG, *shape, True).bound_ms()
+        print(f"  chunked_attention {arch} 1 x {PREFILL_LONG} x {shape}: tma {t['kernel']} ms, mma (forced) "
+              f"{t['mma']} ms, plain {t['plain']} ms, SDPA {t['library']} ms, bound {t['bound']} ms ({t['bound_by']})")
+        del q, k, v
+        torch.cuda.empty_cache()
+        return err, t
+
+    phi3, qwen3 = attention_shape(LM_ARCH), attention_shape(MOE_ARCH)
     q, k, v = qkv(1, LM_SCORE_LEN, phi3, torch.bfloat16)
     err = held(f"{LM_ARCH} prefill", q, k, v)
     err = max(err, held(f"{LM_ARCH} +sbf16", q, k, v, scores_dtype=torch.bfloat16))
     for label, b, s, shape, causal, dtype in (
-            (MOE_ARCH, 1, LM_SCORE_LEN, attention_shape(MOE_ARCH), True, torch.bfloat16),
+            (MOE_ARCH, 1, LM_SCORE_LEN, qwen3, True, torch.bfloat16),
             (MLA_ARCH, 1, LM_SCORE_LEN, attention_shape(MLA_ARCH), True, torch.bfloat16),
             ("minicpm3-4b", 1, LM_SCORE_LEN, attention_shape("minicpm3-4b"), True, torch.bfloat16),
             ("ragged, full", 2, 300, phi3, False, torch.bfloat16),
             (f"{LM_ARCH} float32", 1, LM_SCORE_LEN, phi3, True, torch.float32)):
         err = max(err, held(label, *qkv(b, s, shape, dtype), causal=causal))
-    kw = dict(causal=True, q_chunk=ATTN_Q_CHUNK, scale=1.0 / phi3[2] ** 0.5)
-    t = graphs_in_turns({"kernel": lambda: fn(q, k, v, **kw), "plain": lambda: plain(q, k, v, **kw),
-                         "library": lambda: sdpa_gqa(q, k, v, True)})
+    kw = kwargs(q)
+    t = graphs_in_turns({"kernel": on("tma", q, k, v, kw), "mma": on("mma", q, k, v, kw),
+                         "plain": lambda: plain(q, k, v, **kw), "library": lambda: sdpa_gqa(q, k, v, True)})
     b_ms, b_by = costs.chunked_attention(1, LM_SCORE_LEN, LM_SCORE_LEN, *phi3, True).bound_ms()
-    rec.update(ms_s2048=t["kernel"], plain_ms_s2048=t["plain"], library_ms_s2048=t["library"],
-               bound_ms_s2048=b_ms, bound_by_s2048=b_by)
+    rec = dict(ms_s2048=t["kernel"], mma_ms_s2048=t["mma"], plain_ms_s2048=t["plain"],
+               library_ms_s2048=t["library"], bound_ms_s2048=b_ms, bound_by_s2048=b_by)
+    print(f"  chunked_attention {LM_ARCH} 1 x {LM_SCORE_LEN} x {phi3}: {rec}")
     del q, k, v
-    q, k, v = qkv(1, PREFILL_LONG, phi3, torch.bfloat16)
-    err = max(err, held(f"{LM_ARCH} prefill_32k", q, k, v))
-    t = in_turns({"kernel": lambda: fn(q, k, v, **kw), "library": lambda: sdpa_gqa(q, k, v, True)},
-                 f"S={PREFILL_LONG}", iters=3)
-    b_ms, b_by = costs.chunked_attention(1, PREFILL_LONG, PREFILL_LONG, *phi3, True).bound_ms()
-    plain_ms = time_ms(lambda: plain(q, k, v, **kw), iters=1)
-    print(f"  chunked_attention {LM_ARCH} 1 x {PREFILL_LONG} x {phi3}: kernel {t['kernel']} ms, plain {plain_ms} "
-          f"ms, SDPA {t['library']} ms, bound {b_ms} ms ({b_by}); at 2048: {rec}")
-    del q, k, v
-    torch.cuda.empty_cache()
+    e, t = long_prefill(LM_ARCH, phi3, True)
+    err = max(err, e)
+    e, tq = long_prefill(MOE_ARCH, qwen3, False)
+    err = max(err, e)
+    rec.update(ms_qwen3_32k=tq["kernel"], mma_ms_qwen3_32k=tq["mma"], library_ms_qwen3_32k=tq["library"],
+               bound_ms_qwen3_32k=tq["bound"], bound_by_qwen3_32k=tq["bound_by"])
     return dict(source="src/repro_torch/csrc/chunked_attention.cu",
                 replaces="src/repro/layers/attention.py:104-152 (jnp chunked_attention)",
-                max_abs_err=err, ms=t["kernel"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=t["library"], library_call=SDPA_NOTE, shape=f"1 x {PREFILL_LONG} x {phi3}", **rec)
+                max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"], bound_ms=t["bound"], bound_by=t["bound_by"],
+                library_ms=t["library"], library_call=SDPA_NOTE, mma_ms=t["mma"],
+                routes_timed="ms, ms_*: tma (the served route); mma_ms*: the first design's mma route, forced",
+                shape=f"1 x {PREFILL_LONG} x {phi3}", **rec)
 
 
 def check_decode(dev, gen) -> dict:
@@ -2076,8 +2107,9 @@ def check_decode(dev, gen) -> dict:
     1e-5 for float32, of |out| + the softmax-weighted mean |v|: float32 sums
     in another order, one rounding to the output's type).  Timed as graphs
     in turns (kernel, plain, SDPA on the cache sliced to index + 1 keys) at
-    phi3's PREFILL_LONG - 1 (the decode_32k layer), phi3's 128 and
-    chatglm3's S_max - 1."""
+    phi3's PREFILL_LONG - 1 (the decode_32k layer), phi3's 128, chatglm3's
+    S_max - 1 and qwen3-moe's in-cache PREFILL_LONG - 1 (its decode_32k
+    layer), which is also held against plain."""
     fn, plain = decode_kernel.decode_attention, decode_kernel.decode_attention_plain
 
     def caches(shape, s_max, dtype):
@@ -2136,6 +2168,15 @@ def check_decode(dev, gen) -> dict:
             rec.update(ms_chatglm3_2048=t["kernel"], plain_ms_chatglm3_2048=t["plain"],
                        library_ms_chatglm3_2048=t["library"], bound_ms_chatglm3_2048=c_ms)
         del args
+    # qwen3-moe's decode_32k layer: G 8 in the cache, the second mode
+    shape = attention_shape(MOE_ARCH)
+    args = caches(shape, PREFILL_LONG, torch.bfloat16)
+    err = max(err, held(MOE_ARCH, *args, PREFILL_LONG - 1, False))
+    t = timed(*args, PREFILL_LONG - 1, False)
+    q_ms, q_by = costs.decode_attention(DECODE_M, PREFILL_LONG, *shape).bound_ms()
+    rec.update(ms_qwen3_32k=t["kernel"], plain_ms_qwen3_32k=t["plain"], library_ms_qwen3_32k=t["library"],
+               bound_ms_qwen3_32k=q_ms, bound_by_qwen3_32k=q_by)
+    del args
     print(f"  decode_attention {LM_ARCH} {DECODE_M} x {PREFILL_LONG} keys x {phi3}: kernel {t_long['kernel']} ms, "
           f"plain {t_long['plain']} ms, SDPA {t_long['library']} ms, bound {b_ms} ms ({b_by}); {rec}")
     torch.cuda.empty_cache()
@@ -2223,19 +2264,22 @@ def attention_launches(cfg, prefills: int, decode_steps: int) -> dict:
 
 def check_attention_launches(label: str, cfg, want: dict) -> None:
     """Fail unless the attention kernels' launches by route, mask and mode
-    are all ``want``'s on the model's own: the type's route, causal, and
-    the decode mode of ``cfg.decode_cache_carry``."""
+    are all ``want``'s on the model's own: ``chunked_attention`` causal on
+    the tma route in bf16 (f32 in float32), ``decode_attention`` on its
+    type's route in the decode mode of ``cfg.decode_cache_carry``."""
     ca, de = chunked_kernel.chunked_attention, decode_kernel.decode_attention
     bf16 = cfg.param_dtype() == torch.bfloat16
     n = want.get("chunked_attention", 0)
-    if (ca.launches_by_route != {"mma": n * bf16, "f32": n * (not bf16)}
+    if (ca.launches_by_route != {"tma": n * bf16, "mma": 0, "f32": n * (not bf16)}
             or ca.launches_by_mask != {"causal": n, "full": 0}):
         raise AssertionError(f"{label}: chunked_attention by route {ca.launches_by_route}, by mask "
                              f"{ca.launches_by_mask}: expected all {n} causal on its type's route")
     n = want.get("decode_attention", 0)
     mode = "incremental" if cfg.decode_cache_carry else "in_cache"
-    if de.launches_by_mode != {"incremental": 0, "in_cache": 0, mode: n}:
-        raise AssertionError(f"{label}: decode_attention by mode {de.launches_by_mode}: expected all {n} {mode}")
+    if (de.launches_by_mode != {"incremental": 0, "in_cache": 0, mode: n}
+            or de.launches_by_route != {"bf16": n * bf16, "f32": n * (not bf16)}):
+        raise AssertionError(f"{label}: decode_attention by mode {de.launches_by_mode}, by route "
+                             f"{de.launches_by_route}: expected all {n} {mode} on its type's route")
 
 
 def expected_routes(per_layer: int, cfg, decode_steps: int, sizes: list[int]) -> dict:
@@ -3011,6 +3055,9 @@ def drive_dryrun(dev, gen) -> tuple[dict, dict]:
             want = DRYRUN_ATTENTION[kind] if attention_blocks(cell_cfg) else None
             if {name: n > 0 for name, n in attention.items()} != {name: name == want for name in ATTENTION_KERNELS}:
                 raise AssertionError(f"{label}: attention launches {attention}, expected only {want}")
+            chunked_routes = dict(chunked_kernel.chunked_attention.launches_by_route)
+            if chunked_routes["tma"] != attention["chunked_attention"]:
+                raise AssertionError(f"{label}: chunked_attention by route {chunked_routes}: expected all tma")
             if "quant" in overrides:
                 route = DRYRUN_GEMM_ROUTE[kind]
                 if not (launches.get("bitpack") and launches.get("bnn_matmul_packed")
@@ -3127,12 +3174,14 @@ def main() -> int:
     print(f"init_params: {time.perf_counter() - t0} s")
     lm_paths = {"phi3 serving": drive_serving(dev, cfg, lm_params)}
     serving_routes = dict(bnn_matmul.bnn_matmul_packed.launches_by_route)
+    attention_routes = {name: dict(COUNTED[name].launches_by_route) for name in ATTENTION_KERNELS}
     lm_paths["phi3 scoring"] = drive_scoring(dev, cfg, lm_params, gen)
     records["bnn_matmul_packed"]["launches"] = lm_paths["phi3 serving"]["bnn_matmul_packed"]
     records["bnn_matmul_packed"]["launches_by_route"] = serving_routes
     records["flash_attention"]["launches"] = lm_paths["phi3 scoring"]["flash_attention"]
     for name in ATTENTION_KERNELS:
         records[name]["launches"] = lm_paths["phi3 serving"][name]
+        records[name]["launches_by_route"] = attention_routes[name]
     free(lm_params)
     print(f"LM phases: {time.perf_counter() - t_lm} s")
 

@@ -122,6 +122,26 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory; the bytes count against `bar`'s expected
+// transaction, as a TMA load's do.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Four 8x8 b16 matrices from shared memory into registers: lane l gives the
 // address of row l % 8 of matrix l / 8, and r[q] receives matrix q in the
 // mma.sync fragment layout (row lane / 4, columns 2 * (lane % 4) and + 1).
@@ -203,8 +223,10 @@ __device__ __forceinline__ uint64_t desc_mn_major_128b(const void* p, uint32_t a
 // l = t % 32) holds row 16w + l/4 + 8 * ((j / 2) % 2), column
 // 8 * (j / 4) + 2 * (l % 4) + j % 2 in d[j].  scale_d = 0 overwrites D;
 // TransB = 1 reads an MN-major B.  The shapes the kernels use: m64n64 with
-// both operands from shared memory (flash's scores); m64n64, n96, n128
-// (flash's P V) and n256 (the binary GEMM) with A from registers.
+// both operands from shared memory (flash's scores) and m64n128 (the prefill
+// attention's scores); m64n64, n96, n128 (P V; the prefill attention's
+// scores with Q in registers) and n256 (the binary GEMM) with A from
+// registers.
 template <int N>
 struct Wgmma;
 
@@ -270,6 +292,26 @@ struct Wgmma<96> {
 
 template <>
 struct Wgmma<128> {
+  // D(64x128) (+)= A(64x16) B(16x128), A and B from shared memory.
+  template <int TransB>
+  __device__ static void ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+  }
+
   // D(64x128) (+)= A(64x16) B(16x128), A from registers: a[0..3] hold this
   // thread's part in the mma.sync m16n8k16 A-fragment layout (warp w: rows
   // 16w ..), B from shared memory.

@@ -12,10 +12,27 @@ normalised, PV is summed in float32 and rounded to q's type.  ``q_chunk``
 does not change the function: the kernel ignores it.
 
 A CPU tensor runs :func:`chunked_attention_plain`; a CUDA tensor launches
-the kernel or raises.  Routes (:func:`route`): ``"mma"`` for bf16 (tensor
-cores), ``"f32"`` for float32 (CUDA cores).  Each launch is counted in
-``chunked_attention.launches``, by route in ``launches_by_route`` and by
-mask (``"causal"``, ``"full"``) in ``launches_by_mask``.
+the kernel or raises.  Two passes over the keys (the row's max and sum,
+then p and PV), because p is rounded to bf16 after it is normalised with
+the row's final max and sum.  What bounds it on the card: the tensor
+cores' products (1.5 times the function's, for the second QK^T) and the
+two exponentials a (query, key) pair on the exp2 unit.  Routes
+(:func:`route`, a pure function of the operands):
+
+* ``"tma"`` (bf16 with Dqk and Dv multiples of 8, Dqk <= 192, Dv <= 128,
+  16-byte aligned operands and strides: every served prefill): one producer
+  thread keeps TMA loads of K (and, in the second pass, V) tiles in flight
+  into a ring of stages; two consumer warpgroups of 64 query rows run QK^T
+  and PV on wgmma, the scores and P in registers, QK^T of the next tile on
+  the tensor cores while the exponentials of this one run.  It reads the
+  (B, S, heads, D) views as they are (no copy).
+* ``"mma"`` (bf16 that TMA cannot take; the first design): mma.sync, cp.async
+  copies (element copies for D % 8 != 0 or misaligned operands).
+* ``"f32"`` (float32, CUDA cores).
+
+Each launch is counted in ``chunked_attention.launches``, by route in
+``launches_by_route`` and by mask (``"causal"``, ``"full"``) in
+``launches_by_mask``.
 """
 from __future__ import annotations
 
@@ -28,12 +45,19 @@ from repro_torch.roofline import kernels as costs, ops as op_counts
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ENTRY = {"mma": "chunked_attention_bf16", "f32": "chunked_attention_f32"}
+_L = ctypes.c_longlong
+_ENTRY = {"tma": "chunked_attention_bf16_tma", "mma": "chunked_attention_bf16", "f32": "chunked_attention_f32"}
 _SIGNATURES = {
     name: ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P], _I)
-    for name in _ENTRY.values()
+    for name in (_ENTRY["mma"], _ENTRY["f32"])
 }
+_SIGNATURES[_ENTRY["tma"]] = ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *[_L] * 9, ctypes.c_float, _I, _I, _P],
+                              _I)
 MAX_HEAD_DIM = 256
+TMA_MAX_DQK, TMA_MAX_DV = 192, 128   # csrc/chunked_attention.cu kMaxTmaDqk, kMaxTmaDv
+TMA_QK_WIDTHS = (64, 96, 128, 192)   # Dqk padded to the QK product's depth
+TMA_V_WIDTHS = (64, 96, 128)         # Dv padded to the PV product's N
+TMA_BLOCK_ROWS, TMA_TILE_KEYS = 128, 128   # query rows a block, keys a tile (the TMA boxes' rows)
 _MAX_GRID_YZ = 65535   # heads (grid.y) and batch (grid.z)
 _ALIGN = 16
 
@@ -79,10 +103,47 @@ def chunked_attention_plain(
     return torch.cat(outs, dim=1)
 
 
-def route(q: torch.Tensor) -> str:
-    """The kernel a CUDA launch takes: ``"mma"`` for bf16, ``"f32"`` for
-    float32.  Pure: it reads the type only."""
-    return "mma" if q.dtype == torch.bfloat16 else "f32"
+def _tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """The (batch, position, head) element strides a (B, S, heads, D) operand
+    gives its tensor map: a dimension of one element takes the contiguous
+    stride, which nothing reads."""
+    inner = [t.shape[2] * t.shape[3] * t.shape[1], t.shape[2] * t.shape[3], t.shape[3]]
+    return tuple(int(t.stride(i)) if t.shape[i] > 1 else inner[i] for i in range(3))
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA launch on these operands takes: ``"tma"`` for bf16
+    whose head dims are multiples of 8 (Dqk <= 192, Dv <= 128) with every
+    operand and every stride 16-byte aligned and the head dim contiguous,
+    else ``"mma"`` for bf16; ``"f32"`` for float32.  Pure: it reads type,
+    shape, strides and ``data_ptr`` only, so it can be asked on any
+    device."""
+    if q.dtype != torch.bfloat16:
+        return "f32"
+    dqk, dv = q.shape[-1], v.shape[-1]
+    if not (dqk % 8 == 0 and dv % 8 == 0 and dqk <= TMA_MAX_DQK and dv <= TMA_MAX_DV):
+        return "mma"
+    for t in (q, k, v):
+        if (t.data_ptr() % _ALIGN or t.stride(3) != 1
+                or any(s <= 0 or s * t.element_size() % _ALIGN for s in _tma_strides(t))):
+            return "mma"
+    return "tma"
+
+
+def tma_widths(dqk: int, dv: int) -> tuple[int, int]:
+    """(QK depth, PV width) the tma kernel pads (Dqk, Dv) to: the
+    smallest of ``TMA_QK_WIDTHS`` and ``TMA_V_WIDTHS`` that holds each."""
+    return (next(w for w in TMA_QK_WIDTHS if w >= dqk), next(w for w in TMA_V_WIDTHS if w >= dv))
+
+
+def tma_boxes(dqk: int, dv: int) -> dict[str, tuple[int, int, int, int]]:
+    """The tma kernel's TMA boxes (columns, heads, positions, batch) and
+    how many of each a tile takes: 64-column boxes (128-byte rows under
+    the 128B swizzle), one head and one batch, TMA_BLOCK_ROWS query rows or
+    TMA_TILE_KEYS keys."""
+    qk, pv = tma_widths(dqk, dv)
+    return {"q": (64, 1, TMA_BLOCK_ROWS, 1), "k": (64, 1, TMA_TILE_KEYS, 1), "v": (64, 1, TMA_TILE_KEYS, 1),
+            "q_boxes": -(-qk // 64), "k_boxes": -(-qk // 64), "v_boxes": -(-pv // 64)}
 
 
 def kernel_scale(scale: float, scores_dtype) -> float:
@@ -124,17 +185,28 @@ def chunked_attention(
         return out
     if s_k == 0:
         raise ValueError("no keys: every row's softmax is empty")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    path = route(q)
-    vec = (path == "mma" and dqk % 8 == 0 and dv % 8 == 0
-           and all(t.data_ptr() % _ALIGN == 0 for t in (q, k, v)))
+    return _launch(q, k, v, out, route(q, k, v), causal=causal, scale=scale, scores_dtype=scores_dtype)
+
+
+def _launch(q, k, v, out, path: str, *, causal: bool, scale: float, scores_dtype=torch.float32) -> torch.Tensor:
+    """Launch route ``path``'s kernel on checked operands (the mma and f32
+    kernels on contiguous copies, the tma kernel on the views as they
+    are)."""
+    b, s, h, dqk = q.shape
+    s_k, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     lib = _build.library("chunked_attention", _SIGNATURES)
+    common = (kernel_scale(scale, scores_dtype), int(scores_dtype == torch.bfloat16), int(causal))
+    if path == "tma":
+        strides = [x for t in (q, k, v) for x in _tma_strides(t)]
+        args = (*strides, *common)
+    else:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        vec = (path == "mma" and dqk % 8 == 0 and dv % 8 == 0
+               and all(t.data_ptr() % _ALIGN == 0 for t in (q, k, v)))
+        args = (*common, int(vec))
     with torch.cuda.device(q.device):
-        code = getattr(lib, _ENTRY[path])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s_k, h, kvh, dqk, dv,
-            kernel_scale(scale, scores_dtype), int(scores_dtype == torch.bfloat16), int(causal), int(vec),
-            _build.stream_of(q),
-        )
+        code = getattr(lib, _ENTRY[path])(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s_k, h,
+                                          kvh, dqk, dv, *args, _build.stream_of(q))
     _build.check(lib, code, "chunked_attention")
     chunked_attention.launches += 1
     op_counts.charge("chunked_attention", costs.chunked_attention, b, s, s_k, h, kvh, dqk, dv, causal,

@@ -11,11 +11,20 @@ caches (B, S_max, KVH, D) and (B, S_max, KVH, Dv); scores, softmax and PV
 are float32 (p is not rounded) and only the output is rounded to q's type.
 Nothing here writes the cache.
 
-A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-(one launch of the split kernel and one of the short combine: one call) or
-raises.  Each call is counted in ``decode_attention.launches``, by route
-(``"bf16"``, ``"f32"``: the caches' type) in ``launches_by_route`` and by
-mode in ``launches_by_mode``.
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
+raises.  What bounds it on the card: the bytes of the K and V rows up to
+the index.  A block of four warps owns one (b, KV head, split of the
+positions); each warp streams its own 16-key tiles into its own ring of
+shared-memory stages (a bulk copy a row, completing on an mbarrier),
+scores them on mma.sync with the G heads as rows (bf16; float32 on the
+CUDA cores), keeps its own float32 (max, sum, output) and reads each v
+pair once for all G heads, with no block-wide barrier inside the key loop.
+The warps combine once at the block's end; with one split (a short cache,
+:func:`splits_for`) the block writes the output, with more a second, short
+launch combines the splits (both launches are one call).  Each call is
+counted in ``decode_attention.launches``, by route (``"bf16"``, ``"f32"``:
+the caches' type) in ``launches_by_route`` and by mode in
+``launches_by_mode``.
 """
 from __future__ import annotations
 
@@ -38,8 +47,12 @@ _SIGNATURES = {
 }
 MAX_HEAD_DIM = 128
 MAX_GROUP = 32        # query heads a KV head (csrc/decode_attention.cu kMaxG)
-TILE = 64             # keys a tile (csrc/decode_attention.cu kTile)
-BLOCKS_PER_SM = 16    # blocks the split aims at for each SM: several waves, so the last is a small share
+TILE = 16             # keys a warp's tile (csrc/decode_attention.cu kTile)
+WARPS = 4             # warps a block, each on its own tiles (csrc/decode_attention.cu kWarps)
+BLOCKS_PER_SM = 8     # blocks the splits aim at for each SM: four waves, so the last is a small share
+RESIDENT_BLOCKS = 2   # blocks an SM holds at once (shared memory): a wave
+MIN_SPLIT_TILES = 2 * WARPS     # tiles a split holds at least: two a warp, so a short cache takes one split
+LONG_SPLIT_TILES = 16 * WARPS   # tiles a split holds once a wave is full: a warp's ring fills once a split
 _ALIGN = 16
 
 
@@ -103,10 +116,16 @@ def cache_keys(index: int, s_max: int, incremental: bool) -> int:
 
 def splits_for(keys: int, pairs: int, sms: int) -> tuple[int, int]:
     """(tiles a split, splits) for ``keys`` keys of each of ``pairs``
-    (batch, KV head) pairs: enough splits for BLOCKS_PER_SM blocks on each
-    of ``sms`` SMs, whole tiles each, no split empty."""
+    (batch, KV head) pairs: up to BLOCKS_PER_SM blocks for each of ``sms``
+    SMs, but no more splits than keep LONG_SPLIT_TILES tiles each once one
+    wave (RESIDENT_BLOCKS an SM) is full, since each block pays to fill and
+    drain its warps' rings; and at least MIN_SPLIT_TILES tiles each (so a
+    cache of fewer than twice that takes one split).  Whole tiles, no split
+    empty."""
     tiles = -(-keys // TILE)
-    want = max(1, min(tiles, -(-BLOCKS_PER_SM * sms // pairs)))
+    wave = -(-RESIDENT_BLOCKS * sms // pairs)
+    want = min(-(-BLOCKS_PER_SM * sms // pairs), max(wave, tiles // LONG_SPLIT_TILES))
+    want = max(1, min(want, tiles // MIN_SPLIT_TILES))
     per_split = -(-tiles // want)
     return per_split, -(-tiles // per_split)
 
@@ -173,16 +192,18 @@ def decode_attention(
                    for t in (k_cache, v_cache, *((k_new, v_new) if incremental else ()))))
     per_split, splits = splits_for(keys, b * kvh, torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((b, h, splits, dv), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, h, splits, 2), dtype=torch.float32, device=q.device)
     if b == 0 or h == 0:
         return out
+    # The splits' (max, sum, unnormalised output), for the combine launch.
+    part_acc = torch.empty((b, h, splits, dv), dtype=torch.float32, device=q.device) if splits > 1 else None
+    part_ml = torch.empty((b, h, splits, 2), dtype=torch.float32, device=q.device) if splits > 1 else None
     lib = _build.library("decode_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         code = getattr(lib, _ENTRY[path])(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_new.data_ptr() if incremental else None, v_new.data_ptr() if incremental else None,
-            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, h, kvh, d, dv,
+            out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(), b, h, kvh, d, dv,
             k_cache.stride(0), k_cache.stride(1), v_cache.stride(0), v_cache.stride(1),
             n_cache, int(incremental), per_split, splits, float(scale), int(vec), _build.stream_of(q),
         )

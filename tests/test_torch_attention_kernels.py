@@ -198,13 +198,29 @@ def test_grad_recording_picks_the_plain_version(no_kernels, call):
 
 def test_splits_cover_the_keys_in_whole_tiles():
     tile = tdecode.TILE
-    for keys, pairs in [(1, 16), (64, 16), (65, 16), (129, 128), (32768, 128), (32768, 16), (524288, 32), (7, 1)]:
+    for keys, pairs in [(1, 16), (64, 16), (65, 16), (129, 128), (32768, 128), (32768, 16), (524288, 32), (7, 1),
+                        (2048, 8), (300, 1)]:
         per_split, splits = tdecode.splits_for(keys, pairs, 132)
         tiles = -(-keys // tile)
         assert (splits - 1) * per_split < tiles <= splits * per_split   # every split holds a key
         assert splits <= min(tiles, max(1, -(-tdecode.BLOCKS_PER_SM * 132 // pairs)))
-    assert tdecode.splits_for(32768, 128, 132) == (31, 17)    # phi3 decode_32k: 4 x 32 pairs
-    assert tdecode.splits_for(129, 16, 132) == (1, 3)
+        assert splits == 1 or per_split >= tdecode.MIN_SPLIT_TILES   # two tiles a warp at least
+        wave = -(-tdecode.RESIDENT_BLOCKS * 132 // pairs)
+        assert splits <= wave or per_split >= tdecode.LONG_SPLIT_TILES   # long splits past one wave
+    assert tdecode.splits_for(32768, 128, 132) == (228, 9)    # phi3 decode_32k: 4 x 32 pairs
+    assert tdecode.splits_for(32768, 16, 132) == (64, 32)     # qwen3 decode_32k: 4 x 4 pairs
+    assert tdecode.splits_for(2048, 8, 132) == (8, 16)        # chatglm3 at index 2047: 4 x 2 pairs
+    assert tdecode.splits_for(129, 16, 132) == (9, 1)
+
+
+@pytest.mark.parametrize("keys", [1, 16, 17, 129, (2 * tdecode.MIN_SPLIT_TILES - 1) * tdecode.TILE])
+@pytest.mark.parametrize("pairs", [1, 8, 128])
+def test_a_short_cache_takes_one_split(keys, pairs):
+    """Fewer than 2 x MIN_SPLIT_TILES tiles make one split whatever the
+    card: the block writes the output and no combine launch follows."""
+    tiles = -(-keys // tdecode.TILE)
+    assert tdecode.splits_for(keys, pairs, 132) == (tiles, 1)
+    assert tdecode.splits_for(keys, pairs, 1) == (tiles, 1)
 
 
 def test_cache_keys_are_the_plain_masks():
@@ -217,5 +233,84 @@ def test_kernel_scale_rounds_as_the_plain_version():
     for scale in (1 / 96 ** 0.5, 1 / 192 ** 0.5, 0.3):
         assert tchunk.kernel_scale(scale, torch.bfloat16) == float(torch.tensor(scale, dtype=torch.bfloat16))
         assert tchunk.kernel_scale(scale, torch.float32) == float(torch.tensor(scale, dtype=torch.float32))
-    assert tchunk.route(torch.zeros(1, dtype=torch.bfloat16)) == "mma"
-    assert tchunk.route(torch.zeros(1)) == "f32"
+    q, k, v = _operands(2, 4, 2, 96, 96, torch.bfloat16)
+    assert tchunk.route(q, k, v) == "tma"
+    assert tchunk.route(q.float(), k.float(), v.float()) == "f32"
+
+
+def _operands(b, h, kvh, dqk, dv, dtype, s=5):
+    return (torch.zeros((b, s, h, dqk), dtype=dtype), torch.zeros((b, s, kvh, dqk), dtype=dtype),
+            torch.zeros((b, s, kvh, dv), dtype=dtype))
+
+
+# (Dqk, Dv): stablelm, phi3, qwen3 / chatglm3 / internvl2, deepseek-v2's and
+# minicpm3's MLA, zamba2; then what TMA cannot take.
+TMA_DIMS = [(80, 80), (96, 96), (128, 128), (192, 128), (96, 64), (64, 64), (8, 8), (184, 120)]
+MMA_DIMS = [(13, 13), (96, 13), (20, 96), (200, 128), (256, 128), (128, 136)]
+
+
+@pytest.mark.parametrize("dims", TMA_DIMS + MMA_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_chunked_route_by_type_and_head_dims(dims, dtype):
+    q, k, v = _operands(1, 4, 2, *dims, dtype)
+    want = "f32" if dtype == torch.float32 else "tma" if dims in TMA_DIMS else "mma"
+    assert tchunk.route(q, k, v) == want
+
+
+def _shifted(t: torch.Tensor, elements: int) -> torch.Tensor:
+    """``t``'s values in a buffer that starts ``elements`` elements on: a
+    contiguous view whose data pointer is not 16-byte aligned."""
+    flat = torch.zeros(t.numel() + elements, dtype=t.dtype)
+    out = flat[elements:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_chunked_route_takes_mma_for_misaligned_views(which):
+    ops = list(_operands(2, 4, 2, 96, 96, torch.bfloat16))
+    assert tchunk.route(*ops) == "tma"
+    shifted = list(ops)
+    shifted[which] = _shifted(ops[which], 1)
+    assert shifted[which].data_ptr() % 16 and tchunk.route(*shifted) == "mma"
+    # a position stride of 100 elements (200 bytes) is not a 16-byte multiple
+    wide = torch.zeros((2, 5, ops[which].shape[2], 100), dtype=torch.bfloat16)[..., :96]
+    strided = list(ops)
+    strided[which] = wide
+    assert tchunk.route(*strided) == "mma"
+    # a head broadcast by stride 0
+    expanded = list(ops)
+    expanded[which] = ops[which][:, :, :1].expand(ops[which].shape)
+    assert tchunk.route(*expanded) == "mma"
+
+
+def test_chunked_route_takes_strided_views_it_can_map():
+    """MLA's prefill passes v as a slice of the expanded (K nope, V) rows:
+    aligned strides, no copy needed; a batch of one takes any batch
+    stride."""
+    b, s, h, nope, dv = 2, 5, 4, 128, 128
+    kv = torch.zeros((b, s, h, nope + dv), dtype=torch.bfloat16)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    q = torch.zeros((b, s, h, 192), dtype=torch.bfloat16)
+    k = torch.zeros((b, s, h, 192), dtype=torch.bfloat16)
+    assert not v.is_contiguous() and tchunk.route(q, k, v) == "tma"
+    assert tchunk._tma_strides(v) == (s * h * (nope + dv), h * (nope + dv), nope + dv)
+    one = torch.zeros((1, 7, 3, 96), dtype=torch.bfloat16).as_strided((1, 7, 3, 96), (5, 3 * 96, 96, 1))
+    assert tchunk._tma_strides(one) == (7 * 3 * 96, 3 * 96, 96)
+    assert k_nope.shape[-1] == nope
+
+
+@pytest.mark.parametrize("dims,widths", [((80, 80), (96, 96)), ((96, 96), (96, 96)), ((128, 128), (128, 128)),
+                                         ((192, 128), (192, 128)), ((96, 64), (96, 64)), ((64, 64), (64, 64)),
+                                         ((8, 8), (64, 64)), ((136, 72), (192, 96)), ((184, 120), (192, 128))])
+def test_tma_widths_and_boxes(dims, widths):
+    """Dqk pads to the QK product's depth (64, 96, 128 or 192), Dv to the
+    PV product's N (64, 96 or 128); tiles are 64-column boxes of one head
+    and one batch, 128 query rows or 128 keys."""
+    assert tchunk.tma_widths(*dims) == widths
+    boxes = tchunk.tma_boxes(*dims)
+    assert boxes["q"] == (64, 1, tchunk.TMA_BLOCK_ROWS, 1)
+    assert boxes["k"] == boxes["v"] == (64, 1, tchunk.TMA_TILE_KEYS, 1)
+    assert boxes["q_boxes"] == boxes["k_boxes"] == -(-widths[0] // 64)
+    assert boxes["v_boxes"] == -(-widths[1] // 64)
+    assert boxes["k_boxes"] * 64 >= dims[0] and boxes["v_boxes"] * 64 >= dims[1]

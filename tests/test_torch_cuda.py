@@ -1669,7 +1669,7 @@ def _check_chunked(q, k, v, causal, scores_dtype=torch.float32, path=None):
     scale = 1.0 / q.shape[-1] ** 0.5
     kw = dict(causal=causal, q_chunk=32, scale=scale, scores_dtype=scores_dtype)
     fn = chunked.chunked_attention
-    got = _launched(fn, path or chunked.route(q), lambda: fn(q, k, v, **kw))
+    got = _launched(fn, path or chunked.route(q, k, v), lambda: fn(q, k, v, **kw))
     want = chunked.chunked_attention_plain(q, k, v, **kw)
     mean_abs_v = chunked.chunked_attention_plain(q.float(), k.float(), v.float().abs(), **kw)
     _within_rounding(got, want, mean_abs_v, BF16_ULP if q.dtype == torch.bfloat16 else 1e-5)
@@ -1701,6 +1701,83 @@ def test_chunked_attention_long_prompt_and_misaligned_operand(cuda):
     q, k, v = _qkv(1, 2048, 8, 2, 96, 96, torch.bfloat16, 3, cuda)
     _check_chunked(q, k, v, True)
     _check_chunked(_shifted(q, 2), k, v, True)   # element copies: the kernel's other loader
+
+
+# (Dqk, Dv, G) of every served prefill: phi3, qwen3-moe, deepseek-v2 (MLA),
+# minicpm3 (MLA), stablelm, chatglm3, zamba2, internvl2.
+SERVED_CHUNKED = [(96, 96, 1), (128, 128, 8), (192, 128, 1), (96, 64, 1), (80, 80, 1), (128, 128, 16),
+                  (64, 64, 1), (128, 128, 2)]
+
+
+@pytest.mark.parametrize("dims", SERVED_CHUNKED)
+@pytest.mark.parametrize("s", [1, 13, 64, 65, 129, 300])
+def test_chunked_attention_tma_route_at_served_shapes(cuda, dims, s):
+    """The tma kernel against the plain version at every served (Dqk, Dv,
+    G), S around the 128-key tiles and 128-row blocks, batch 2, causal and
+    full."""
+    dqk, dv, g = dims
+    q, k, v = _qkv(2, s, 2 * g, 2, dqk, dv, torch.bfloat16, s + dqk + g, cuda)
+    assert chunked.route(q, k, v) == "tma"
+    _check_chunked(q, k, v, True, path="tma")
+    _check_chunked(q, k, v, False, path="tma")
+
+
+@pytest.mark.parametrize("dims", [(96, 96, 1), (192, 128, 1), (128, 128, 8)])
+@pytest.mark.parametrize("s", [65, 300])
+def test_chunked_attention_tma_route_bf16_scores(cuda, dims, s):
+    dqk, dv, g = dims
+    q, k, v = _qkv(2, s, 2 * g, 2, dqk, dv, torch.bfloat16, 11, cuda)
+    _check_chunked(q, k, v, True, torch.bfloat16, path="tma")
+
+
+@pytest.mark.parametrize("scale", [0.7, -0.3, 0.0])
+def test_chunked_attention_tma_route_takes_any_scale(cuda, scale):
+    """A scale of 0 or below scales the sums before the max (the folded
+    exponent needs scale > 0)."""
+    q, k, v = _qkv(2, 130, 4, 2, 64, 64, torch.bfloat16, 5, cuda)
+    kw = dict(causal=True, q_chunk=32, scale=scale)
+    fn = chunked.chunked_attention
+    got = _launched(fn, "tma", lambda: fn(q, k, v, **kw))
+    want = chunked.chunked_attention_plain(q, k, v, **kw)
+    mean_abs_v = chunked.chunked_attention_plain(q.float(), k.float(), v.float().abs(), **kw)
+    _within_rounding(got, want, mean_abs_v, BF16_ULP)
+
+
+def test_chunked_attention_tma_route_reads_strided_views(cuda):
+    """MLA's prefill passes V as a slice of the expanded (K nope, V) rows:
+    the tma kernel maps the view as it is."""
+    b, s, h, nope, rope, dv = 2, 77, 4, 128, 64, 128
+    gen = torch.Generator().manual_seed(9)
+    kv = torch.randn((b, s, h, nope + dv), generator=gen).to(cuda, torch.bfloat16)
+    q = torch.randn((b, s, h, nope + rope), generator=gen).to(cuda, torch.bfloat16)
+    k_rope = torch.randn((b, s, 1, rope), generator=gen).to(cuda, torch.bfloat16)
+    k = torch.cat([kv[..., :nope], k_rope.expand(b, s, h, rope)], dim=-1)
+    v = kv[..., nope:]
+    assert not v.is_contiguous() and chunked.route(q, k, v) == "tma"
+    _check_chunked(q, k, v, True, path="tma")
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_chunked_attention_misaligned_view_takes_mma(cuda, which):
+    ops = list(_qkv(2, 100, 4, 2, 96, 96, torch.bfloat16, which, cuda))
+    ops[which] = _shifted(ops[which], 2)
+    assert chunked.route(*ops) == "mma"
+    _check_chunked(*ops, True, path="mma")
+
+
+@pytest.mark.parametrize("dims", [(96, 96, 1), (128, 128, 8), (192, 128, 1)])
+def test_chunked_attention_forced_mma_route_matches_plain(cuda, dims):
+    """The first design's kernel on operands the tma route takes (its 16-byte copies),
+    forced as the timing in turns forces it."""
+    dqk, dv, g = dims
+    q, k, v = _qkv(2, 300, 2 * g, 2, dqk, dv, torch.bfloat16, 4, cuda)
+    kw = dict(causal=True, q_chunk=32, scale=1.0 / dqk ** 0.5)
+    fn = chunked.chunked_attention
+    out = torch.empty((2, 300, 2 * g, dv), dtype=torch.bfloat16, device=cuda)
+    got = _launched(fn, "mma", lambda: chunked._launch(q, k, v, out, "mma", causal=True, scale=kw["scale"]))
+    want = chunked.chunked_attention_plain(q, k, v, **kw)
+    mean_abs_v = chunked.chunked_attention_plain(q.float(), k.float(), v.float().abs(), **kw)
+    _within_rounding(got, want, mean_abs_v, BF16_ULP)
 
 
 def _caches(b, s_max, h, kvh, d, dtype, seed, cuda, layers=1):
@@ -1753,6 +1830,43 @@ def test_decode_attention_model_head_shapes(cuda, heads, dtype):
     _check_decode(q, kc, vc, 5000)   # past the end: the whole cache, as the plain masks keep it
 
 
+@pytest.mark.parametrize("g", [1, 2, 8, 16, 32])
+@pytest.mark.parametrize("index", [0, 1, 63, 64, 65, 299])
+@pytest.mark.parametrize("mode", ["incremental", "in_cache"])
+def test_decode_attention_groups_and_tile_edges(cuda, g, index, mode):
+    """G of 1 to 32 (one and two 16-head row tiles of the scores), index at
+    the 16-key tiles' and the four warps' edges and S_max - 1, over a
+    strided layer view of the caches."""
+    q, kc, vc, kn, vn = _caches(2, 300, 2 * g, 2, 64, torch.bfloat16, index + g, cuda, layers=2)
+    assert not kc.is_contiguous() or kc.storage_offset()
+    if mode == "incremental":
+        _check_decode(q, kc, vc, index, kn, vn)
+    else:
+        _check_decode(q, kc, vc, index)
+
+
+@pytest.mark.parametrize("d", [13, 20])
+@pytest.mark.parametrize("g", [1, 4, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_element_copies(cuda, d, g, dtype):
+    """Rows of D % 8 != 0 (bf16) or % 4 != 0 (float32) are copied element
+    by element, not in bulk."""
+    q, kc, vc, kn, vn = _caches(2, 200, 2 * g, 2, d, dtype, d + g, cuda, layers=2)
+    _check_decode(q, kc, vc, 150, kn, vn)
+    _check_decode(q, kc, vc, 199)
+
+
+@pytest.mark.parametrize("keys", [1, 255, 256, 2048, 4097])
+def test_decode_attention_one_split_and_many(cuda, keys):
+    """A short cache takes one split (the block writes the output); a long
+    one several and the combine launch."""
+    q, kc, vc, kn, vn = _caches(4, keys, 32, 2, 128, torch.bfloat16, keys, cuda)
+    per_split, splits = decode.splits_for(keys, 4 * 2, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (splits == 1) == (-(-keys // decode.TILE) < 2 * decode.MIN_SPLIT_TILES)
+    _check_decode(q, kc, vc, keys - 1)
+    _check_decode(q, kc, vc, keys - 1, kn, vn)
+
+
 def test_decode_attention_long_cache_and_misaligned_cache(cuda):
     q, kc, vc, kn, vn = _caches(4, 32768, 32, 32, 96, torch.bfloat16, 1, cuda)
     _check_decode(q, kc, vc, 32767, kn, vn)
@@ -1765,6 +1879,7 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda):
     q, k, v = _qkv(1, 16, 4, 2, 32, 32, torch.bfloat16, 0, cuda)
     qd, kc, vc, kn, vn = _caches(1, 16, 4, 2, 32, torch.bfloat16, 0, cuda)
     kw = dict(causal=True, q_chunk=8, scale=0.2)
+    assert chunked.route(q, k, v) == "tma"
     calls = [
         lambda: chunked.chunked_attention(q, k.float(), v, **kw),
         lambda: chunked.chunked_attention(q, k[:, :, :1].expand(1, 16, 3, 32), v, **kw),
@@ -1825,6 +1940,43 @@ def test_gqa_prefill_and_decode_on_cuda_match_cpu(cuda, arch):
     for got, want in zip(runs[str(cuda)], runs["cpu"]):
         scale = max(1.0, float(want.abs().max()))
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "chatglm3-6b"])
+def test_gqa_bf16_prefill_and_decode_launch_counts(cuda, arch):
+    """A tiny bf16 model's prefill and three decode steps on the card: one
+    ``chunked_attention`` launch a layer on the tma route, one
+    ``decode_attention`` a layer a step on the bf16 route in the model's
+    mode, and finite logits."""
+    from repro_torch import models
+
+    cfg = get_config(arch, num_layers=3, d_model=64, num_heads=8, num_kv_heads=2, head_dim=16, d_ff=128,
+                     vocab_size=97, attn_q_chunk=8)
+    assert cfg.param_dtype() == torch.bfloat16
+    params = models.init_params(cfg, 4, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 97, (2, 11))).to(cuda)
+    ca, de = chunked.chunked_attention, decode.decode_attention
+    before = (dict(ca.launches_by_route), dict(de.launches_by_route), dict(de.launches_by_mode))
+    with torch.inference_mode():
+        logits, cache = models.prefill(params, {"tokens": tokens}, cfg)
+        full = models.init_cache(cfg, 2, 32, device=cuda)
+        for dst, src in zip(models.model.cache_tensors(full), models.model.cache_tensors(cache)):
+            dst[:, :, : src.shape[2]] = src
+        cache = models.model.set_index(full, 11)
+        outs = [logits]
+        token = logits.argmax(-1)
+        for _ in range(3):
+            logits, cache = models.decode_step(params, token, cache, cfg)
+            outs.append(logits)
+            token = logits.argmax(-1)
+    torch.cuda.synchronize()
+    mode = "incremental" if cfg.decode_cache_carry else "in_cache"
+    n = cfg.num_layers
+    assert {p: ca.launches_by_route[p] - before[0][p] for p in before[0]} == {"tma": n, "mma": 0, "f32": 0}
+    assert {p: de.launches_by_route[p] - before[1][p] for p in before[1]} == {"bf16": 3 * n, "f32": 0}
+    assert {m: de.launches_by_mode[m] - before[2][m] for m in before[2]} == {
+        "incremental": 3 * n * (mode == "incremental"), "in_cache": 3 * n * (mode == "in_cache")}
+    assert all(bool(torch.isfinite(o.float()).all()) for o in outs)
 
 
 @pytest.mark.parametrize("fn,n", [("bitpack", 8192), ("pack_bits_words", 8190)])

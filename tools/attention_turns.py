@@ -9,7 +9,12 @@ builds its own ``repro_torch``):
   1 x 2048 and 1 x 32,768 tokens, bf16, causal; ``decode_attention`` at
   their decode_32k layers (4 slots over 32,768 keys: phi3 incremental,
   qwen3 in the cache).  CUDA events over back-to-back launches after two
-  warm-up calls, in ms a call.  A tree without the kernels records none.
+  warm-up calls, in ms a call.  Then ``decode_attention`` at short caches,
+  phi3 at index 128 and chatglm3-6b (32 query heads over 2 KV heads of
+  128, in the cache) at index 2047 of 2048: CUDA events over replays of a
+  CUDA graph of 20 calls, in ms a call (a call takes microseconds, so the
+  host's launch time would set a back-to-back figure).  A tree without the
+  kernels records none.
 * ``cells``: ``chip_smoke.py``'s dry-run cells of that tree (phi3
   ``bnn_packed`` decode_32k and prefill_32k at 4 layers, zamba2 long_500k)
   through ``launch/dryrun.py::run_cell``, each at the batch it chooses, and
@@ -39,6 +44,9 @@ PREFILLS = (2048, 32768)
 DECODE_KEYS = 32768
 DECODE_SLOTS = 4
 PREFILL_BATCH = 4   # the batch the dry run chose for the prefill cell while scores were float32 blocks
+# (name, query heads, KV heads, head dim, decode mode, cache positions, index)
+SHORT_DECODES = (("phi3", 32, 32, 96, "incremental", 32768, 128), ("chatglm3", 32, 2, 128, "in_cache", 2048, 2047))
+GRAPH_CALLS = 20
 
 
 def _timer(device):
@@ -62,6 +70,27 @@ def _timer(device):
         return start.elapsed_time(end) / iters
 
     return ms
+
+
+def _graph_ms(fn, replays: int = 20) -> float:
+    """ms a call of ``fn`` from replays of a CUDA graph of GRAPH_CALLS calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * GRAPH_CALLS)
 
 
 def kernels(device) -> dict:
@@ -93,6 +122,19 @@ def kernels(device) -> dict:
             if mode == "incremental" else {}
         out[f"decode_{name}_{keys}_ms"] = ms(
             lambda: dk.decode_attention(q, kc, vc, keys - 1, scale=d ** -0.5, **new), 50)
+        del q, kc, vc, new
+    for name, h, kvh, d, mode, s_max, index in SHORT_DECODES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+        s_max = min(s_max, 64) if cpu else s_max
+        index = min(index, s_max - 1)
+        q = randn(DECODE_SLOTS, 1, h, d)
+        kc, vc = randn(DECODE_SLOTS, s_max, kvh, d), randn(DECODE_SLOTS, s_max, kvh, d)
+        new = dict(k_new=randn(DECODE_SLOTS, 1, kvh, d), v_new=randn(DECODE_SLOTS, 1, kvh, d)) \
+            if mode == "incremental" else {}
+        call = lambda: dk.decode_attention(q, kc, vc, index, scale=d ** -0.5, **new)  # noqa: E731
+        out[f"decode_{name}_index{index}_ms"] = ms(call, 50) if cpu else _graph_ms(call)
         del q, kc, vc, new
     return out
 
